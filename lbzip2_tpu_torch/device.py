@@ -1,0 +1,58 @@
+"""Explicit device resolution and event polling.
+
+There is no automatic choice: ``"cuda"`` without a usable CUDA device
+raises, so a run can never silently land on the CPU.  Only the tests
+pass ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+
+def resolve(device: str | torch.device) -> torch.device:
+    """torch.device for ``device``; raises if it names CUDA and there
+    is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``dev``.  To CUDA through a pinned buffer,
+    without blocking the host (the copy is ordered on the current
+    stream)."""
+    t = torch.from_numpy(np.require(x, requirements="CW"))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def record_event(dev: torch.device) -> torch.cuda.Event | None:
+    """Event recorded on the current stream of a CUDA device (None on
+    the CPU, where every op has already run)."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def wait_event(ev: torch.cuda.Event | None) -> None:
+    """Poll ``ev`` with exponential backoff (50 ms up to 0.5 s, as the
+    JAX engine polls ``is_ready``) instead of a blocking synchronize,
+    so a waiting host thread does not spin a core."""
+    nap = 0.05
+    while ev is not None and not ev.query():
+        time.sleep(nap)
+        nap = min(0.5, nap * 1.6)

@@ -1,0 +1,311 @@
+"""Device entropy chain: BWT bytes -> MTF -> RLE2 -> EM -> packed payload.
+
+Counterpart of lbzip2_tpu/ops/chain.py (chain mode of the level-9 main
+path).  Layouts and dtypes at every public function follow the JAX
+package, except that a JAX uint32 word is held as int64 masked to 32
+bits (see lbzip2_tpu_torch/interop.py).  The host steps are those of
+the JAX ``chain_payloads``: ``generate_initial_trees``,
+``native.chain_finish`` and the header splice.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from lbzip2_tpu import native
+from lbzip2_tpu.core.constants import GROUP_SIZE, MAX_ALPHA_SIZE, MAX_TREES
+from lbzip2_tpu.ref.huffman import generate_initial_trees, num_trees_for
+from lbzip2_tpu_torch.device import upload
+from lbzip2_tpu_torch.interop import M32
+from lbzip2_tpu_torch.ops.huffenc import _em_chain
+from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
+from lbzip2_tpu_torch.ops.rle2 import _rle2_batch
+
+WIDTH = MAX_ALPHA_SIZE + 1  # 259: symbols 0..257 + per-row dummy `as`
+_SLOT_WORDS = 32            # 1024 bits >= 50 codes * 20 bits + padding
+
+# Flat download: per-row payload words compacted into whole chunks.
+FLAT_W = 3_500_032
+FLAT_CHUNK = 524_288
+# Payload word capacity per row, and the small variant picked when every
+# row fits it (lbzip2_tpu/ops/chain.py:400-404).
+PACK_W = 160768
+PACK_W_SMALL = 80384
+
+
+def _compact_syms(bwt: torch.Tensor, cmaps: torch.Tensor) -> torch.Tensor:
+    """Raw BWT bytes -> compacted symbol ids (B, N) int32: the number of
+    used byte values below each byte, from a per-row 256-entry table."""
+    cm = cmaps.int()
+    tab = torch.cumsum(cm, dim=1, dtype=torch.int32) - cm
+    return torch.gather(tab, 1, bwt.long())
+
+
+def _group_hist(mtfv: torch.Tensor, nm: torch.Tensor,
+                ninuse: torch.Tensor):
+    """Per-group symbol histogram (B, G, WIDTH) float32, the padded
+    groups view (B, G, 50) and ngroups (B,).  Counted with an int32
+    scatter_add_ (exact), stored as float32 like the JAX op."""
+    B, NP = mtfv.shape
+    dev = mtfv.device
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    pad_to = G * GROUP_SIZE
+    lanes = torch.arange(pad_to, dtype=torch.int32, device=dev)[None]
+    padded = torch.nn.functional.pad(mtfv, (0, pad_to - NP))
+    padded = torch.where(lanes < nm[:, None], padded, (ninuse + 2)[:, None])
+    groups = padded.reshape(B, G, GROUP_SIZE)
+    ngroups = (nm + GROUP_SIZE - 1) // GROUP_SIZE
+    hist = torch.zeros((B, G, WIDTH), dtype=torch.int32, device=dev)
+    hist.scatter_add_(2, groups.clamp(max=WIDTH - 1).long(),
+                      torch.ones_like(groups))
+    return hist.float(), groups, ngroups.int()
+
+
+def _chain_mtf2(bwt: torch.Tensor, ns: torch.Tensor, cmaps: torch.Tensor):
+    """BWT bytes -> (mtfv (B, N+1), nm (B,), hist (B, WIDTH) int32 flat
+    histogram, hist_g (B, G, WIDTH) float32, ngroups (B,))."""
+    syms = _compact_syms(bwt, cmaps)
+    ninuse = cmaps.int().sum(1, dtype=torch.int32)
+    ranks = mtf_ranks_rows(syms, ns)
+    mtfv, nm = _rle2_batch(ranks, ns, ninuse)
+    hist_g, _, ngroups = _group_hist(mtfv, nm, ninuse)
+    hist = hist_g.sum(1).int()  # sums < 2^24: exact in float32
+    return mtfv, nm, hist, hist_g, ngroups
+
+
+def _em_estep_hist(hist: torch.Tensor, ngroups: torch.Tensor,
+                   nt: torch.Tensor, lengths: torch.Tensor):
+    """One batched EM expectation step with the spec's base-1024 lane
+    packing (lbzip2_tpu/ops/chain.py:147).
+
+    hist (B, G, WIDTH) float32; ngroups, nt (B,); lengths (B, 6, WIDTH)
+    int32.  Returns (selectors (B, G) int32, freqs (B, 6, WIDTH)
+    int32).  Both products run in float64, which is exact for these
+    integers and untouched by TF32 settings."""
+    B, G, _ = hist.shape
+    dev = hist.device
+    hd = hist.double()
+    C = torch.bmm(hd, lengths.double().transpose(1, 2)).long()  # (B,G,T)
+    glo = (C[..., 0] + (C[..., 1] << 10) + (C[..., 2] << 20)) & M32
+    ghi = (C[..., 3] + (C[..., 4] << 10) + (C[..., 5] << 20)) & M32
+    ghi = (ghi + (glo >> 30)) & M32  # lane-2 carry crosses the words
+    best = torch.full((B, G), 0x400, dtype=torch.long, device=dev)
+    bt = torch.zeros((B, G), dtype=torch.int32, device=dev)
+    for t in range(MAX_TREES):
+        word = glo if t < 3 else ghi
+        c = (word >> (10 * (t % 3))) & 0x3FF
+        live = (t < nt)[:, None]
+        better = live & (c < best) if t else live  # first minimum wins
+        best = torch.where(better, c, best)
+        bt = torch.where(better, t, bt)
+
+    gvalid = torch.arange(G, device=dev)[None] < ngroups[:, None]
+    trees = torch.arange(MAX_TREES, dtype=torch.int32, device=dev)
+    onehot = (bt[:, None, :] == trees[None, :, None]) & gvalid[:, None, :]
+    freqs = torch.bmm(onehot.double(), hd).int()  # (B, T, WIDTH)
+    return bt, freqs
+
+
+def _pack_groups(mtfv: torch.Tensor, nm: torch.Tensor,
+                 ninuse: torch.Tensor, ngroups: torch.Tensor,
+                 selectors: torch.Tensor, codes: torch.Tensor,
+                 lens: torch.Tensor, start_bit: torch.Tensor, W: int):
+    """Pack every group's Huffman codes into the payload bit stream
+    (lbzip2_tpu/ops/chain.py:222).
+
+    codes (B, 6, WIDTH) int64 (< 2^20), lens (B, 6, WIDTH) int32,
+    start_bit (B,).  Returns (words (B, W) int64 holding big-endian u32
+    payload words, total_bits (B,) int64).  The u32 shifts run in int64
+    with a mask; both scatter-adds and the W+1 dump slot stay."""
+    B, NP = mtfv.shape
+    dev = mtfv.device
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    lanes = torch.arange(G * GROUP_SIZE, dtype=torch.int32, device=dev)[None]
+    padded = torch.nn.functional.pad(mtfv, (0, G * GROUP_SIZE - NP))
+    padded = torch.where(lanes < nm[:, None], padded, (ninuse + 2)[:, None])
+    groups = padded.reshape(B, G, GROUP_SIZE)
+
+    # per-symbol code + length from one table gather: (len << 24) | code
+    tree = selectors.clamp(0, MAX_TREES - 1).long()
+    flat_sym = (tree[:, :, None] * WIDTH + groups).reshape(B, -1)
+    packed_tab = ((lens.long() << 24) | codes.long()).reshape(
+        B, MAX_TREES * WIDTH)
+    pv = torch.gather(packed_tab, 1, flat_sym).reshape(B, G, GROUP_SIZE)
+    cv = pv & 0x00FFFFFF
+    gvalid = torch.arange(G, device=dev)[None] < ngroups[:, None]
+    lv = torch.where(gvalid[:, :, None], pv >> 24, 0)
+
+    # level 1: 50 codes into one 33-word slot per group
+    ends = torch.cumsum(lv, dim=2)
+    gbits = ends[:, :, -1]
+    starts = ends - lv
+    s_in = starts & 31
+    widx = starts >> 5
+    end_in = s_in + lv
+    hi = torch.where(end_in <= 32,
+                     (cv << (32 - end_in).clamp(0, 31)) & M32,
+                     cv >> (end_in - 32).clamp(0, 31))
+    lo = torch.where(end_in <= 32, 0,
+                     (cv << (64 - end_in).clamp(0, 31)) & M32)
+    slots = torch.zeros((B, G, _SLOT_WORDS + 1), dtype=torch.long,
+                        device=dev)
+    slots.scatter_add_(2, widx, hi)
+    slots.scatter_add_(2, widx + 1, lo)
+    su = slots & M32  # code bit ranges never overlap: add == or
+
+    # level 2: shift each slot to its group's bit offset, scatter-add
+    # into W + 2 words (W + 1 is the dump slot for invalid/overflow)
+    S = _SLOT_WORDS + 1
+    gends = torch.cumsum(gbits, dim=1) + start_bit.long()[:, None]
+    gstarts = gends - gbits
+    total = gends[:, -1] if G > 0 else start_bit.long()
+    sh2 = (gstarts & 31)[:, :, None]
+    wbase = (gstarts >> 5)[:, :, None]
+    prevw = torch.nn.functional.pad(su[:, :, :-1], (1, 0))
+    lsh = (32 - sh2) & 31
+    val = torch.where(sh2 == 0, su, ((su >> sh2) | (prevw << lsh)) & M32)
+    spill = torch.where(sh2 == 0, 0, (su[:, :, -1:] << lsh) & M32)
+    val = torch.cat([val, spill], dim=2)                     # (B,G,S+1)
+    ji = torch.arange(S + 1, device=dev)[None, None]
+    widx2 = torch.where(gvalid[:, :, None], wbase + ji, W + 1)
+    out = torch.zeros((B, W + 2), dtype=torch.long, device=dev)
+    out.scatter_add_(1, widx2.clamp(max=W + 1).reshape(B, -1),
+                     val.reshape(B, -1))
+    words = out[:, :W] & M32
+    wpos = torch.arange(W, device=dev)[None] * 32
+    return torch.where(wpos < total[:, None], words, 0), total
+
+
+def _flatten_words(words: torch.Tensor, ends: torch.Tensor, F: int,
+                   base: int = 0) -> torch.Tensor:
+    """Compact per-row payload words into flat slots [base, base + F):
+    slot f belongs to row searchsorted(ends, f, right=True).  ends: (B,)
+    inclusive prefix sum of per-row word counts (int32)."""
+    B, W = words.shape
+    f = torch.arange(F, dtype=torch.int32, device=words.device) + base
+    r = torch.searchsorted(ends, f, right=True)
+    rc = r.clamp(max=B - 1)
+    starts = torch.cat([torch.zeros_like(ends[:1]), ends[:-1]])
+    idx = (f - starts[rc]).clamp(0, W - 1).long()
+    return torch.where(r < B, words[rc, idx], 0)
+
+
+def _flatten_download(words: torch.Tensor, ends_dev: torch.Tensor,
+                      needed: int) -> np.ndarray:
+    """Compact on the device and download whole FLAT_CHUNK chunks
+    covering ``needed`` words; returns a host uint32 array."""
+    nch = (needed + FLAT_CHUNK - 1) // FLAT_CHUNK
+    flat = _flatten_words(words, ends_dev, nch * FLAT_CHUNK)
+    # int64-held u32 -> int32 bit pattern: half the bytes on the wire
+    flat = torch.where(flat >= 2 ** 31, flat - 2 ** 32, flat).int()
+    return flat.cpu().numpy().view(np.uint32)
+
+
+def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
+                   cluster_factor: int = 8, pack_w: int = PACK_W,
+                   _force_full_pack: bool = False,
+                   times: dict | None = None):
+    """Drive the device entropy chain for one resolved BWT batch.
+
+    bwt_dev: (B, N) uint8 tensor of BWT rows on the compute device;
+    ns / idxs / crcs: (B,) host arrays; cmaps: (B, 256) uint8.  Returns
+    B payload byte strings, None for rows that exceed the pack width
+    (the caller re-encodes those on the host).
+
+    Device: MTF + RLE2 + EM + group bit-pack.  Host (C): initial trees,
+    final code assignment and headers, stream splice.  Each download
+    (``.cpu()``) is the wait on the device."""
+
+    def _mark(key, t0):
+        if times is not None:
+            times[key] = round(time.time() - t0, 3)
+        return time.time()
+
+    dev = bwt_dev.device
+
+    def _put(x):
+        return upload(x, dev)
+
+    t0 = time.time()
+    B, N = bwt_dev.shape
+    ns = np.asarray(ns, np.int32)
+    cmaps_u8 = np.ascontiguousarray(cmaps, np.uint8)
+    mtfv, nm, hist, hist_g, ngroups_dev = _chain_mtf2(
+        bwt_dev, _put(ns), _put(cmaps_u8))
+    t0 = _mark("dispatch_mtf", t0)
+    nm_h = nm.cpu().numpy()
+    hist_h = hist.cpu().numpy()
+    t0 = _mark("wait_mtf", t0)
+    ninuse = cmaps_u8.sum(axis=1, dtype=np.int32)
+    as_arr = ninuse + 2
+    nt_arr = np.array([num_trees_for(int(v)) for v in nm_h], np.int32)
+    ngroups = (nm_h + GROUP_SIZE - 1) // GROUP_SIZE
+
+    # zero the group-padding counts at lane `as` before the initial split
+    lane = np.arange(WIDTH, dtype=np.int32)[None]
+    hist_h = np.where(lane < as_arr[:, None], hist_h, 0)
+    lengths = np.ones((B, MAX_TREES, WIDTH), np.uint8)
+    for b in range(B):
+        lengths[b] = generate_initial_trees(
+            hist_h[b].astype(np.int64), int(nm_h[b]), int(nt_arr[b]))
+        lengths[b, :, as_arr[b]:] = 0
+
+    ninuse_dev = _put(ninuse)
+    nt_dev = _put(nt_arr)
+    t0 = _mark("init_trees", t0)
+    sel, freqs, lengths_dev, _ = _em_chain(
+        hist_g, ngroups_dev, nt_dev, _put(as_arr.astype(np.int32)),
+        _put(lengths.astype(np.int32)), cluster_factor)
+    t0 = _mark("dispatch_em", t0)
+    freqs_h = freqs.cpu().numpy().astype(np.uint32)
+    lengths = np.ascontiguousarray(
+        lengths_dev.cpu().numpy(), np.uint8).reshape(B, MAX_TREES, WIDTH)
+    sel_h = sel.cpu().numpy().astype(np.uint8)
+    t0 = _mark("wait_em", t0)
+    codes, hdr, hdr_bits, payload_bits = native.chain_finish(
+        sel_h, ngroups, freqs_h, as_arr, nt_arr, cmaps_u8,
+        np.asarray(idxs, np.int32), np.asarray(crcs, np.uint32), lengths)
+    t0 = _mark("finish_c", t0)
+
+    start_bit = (hdr_bits % 32).astype(np.int32)
+    fits = (payload_bits + start_bit) <= 32 * pack_w
+    need = np.where(fits, (payload_bits + start_bit + 31) // 32, 0)
+    pw = PACK_W_SMALL if (B and need.max() <= PACK_W_SMALL and
+                          pack_w == PACK_W and
+                          not _force_full_pack) else pack_w
+    fits = (payload_bits + start_bit) <= 32 * pw
+    words, _ = _pack_groups(
+        mtfv, nm, ninuse_dev, _put(ngroups.astype(np.int32)), sel,
+        _put(codes.astype(np.int64)), _put(lengths.astype(np.int32)),
+        _put(start_bit), pw)
+    t0 = _mark("dispatch_pack", t0)
+
+    wcnt = np.where(fits, (payload_bits + start_bit + 31) // 32,
+                    0).astype(np.int32)
+    ends = np.cumsum(wcnt).astype(np.int32)
+    if B and ends[-1] <= FLAT_W:
+        flat_h = _flatten_download(words, _put(ends), int(ends[-1]))
+        rows = [flat_h[(ends[b] - wcnt[b]):ends[b]] for b in range(B)]
+    else:
+        words_h = (words.cpu().numpy() & M32).astype(np.uint32)
+        rows = [words_h[b, :wcnt[b]] for b in range(B)]
+    t0 = _mark("wait_pack", t0)
+
+    out = []
+    for b in range(B):
+        if not fits[b]:
+            out.append(None)
+            continue
+        hb = (int(hdr_bits[b]) + 7) // 8
+        w0 = int(hdr_bits[b]) // 32
+        total_bytes = (int(hdr_bits[b]) + int(payload_bits[b])) // 8
+        buf = np.zeros(total_bytes, np.uint8)
+        buf[:hb] = hdr[b, :hb]
+        pb = rows[b].astype(">u4").view(np.uint8)
+        buf[4 * w0:] |= pb[:total_bytes - 4 * w0]
+        out.append(buf.tobytes())
+    _mark("splice", t0)
+    return out

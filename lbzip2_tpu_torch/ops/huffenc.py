@@ -1,0 +1,152 @@
+"""Batched Huffman code lengths and the EM loop on the device.
+
+Counterpart of lbzip2_tpu/ops/huffenc.py.  Bit-exact with
+native/huffman2.c make_code_lengths2: node order is the lexicographic
+key (freq, height, nleaf mod 256, tag), tag = MAX_ALPHA - symbol for
+leaves and the j-th merge carrying the tag of the j-th smallest leaf;
+lengths come from the two-queue merge preferring leaves on ties and are
+re-assigned by rank profile.
+
+The merge is sequential over <= 257 steps of O(1) work, vectorised
+across the B * 6 rows of a batch.  Eager PyTorch launches a few dozen
+small ops per step; that launch cost is accepted in this port and
+recorded in PERF.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lbzip2_tpu.core.constants import MAX_ALPHA_SIZE, MAX_TREES
+
+MAX_ALPHA = 258
+W = MAX_ALPHA_SIZE + 1          # 259 lanes (symbols 0..257 + dummy)
+_NLEAF = MAX_ALPHA              # max leaves per tree (as <= 258)
+_NMERGE = _NLEAF - 1
+_NN = _NLEAF + _NMERGE          # node slots: sorted leaves, then merges
+_HLIM = 30                      # MAX_HUFF_LEN2 profile clamp
+_INF32 = 0x7FFFFFFF
+
+
+def _lt(fa, ta, fb, tb):
+    """Lexicographic (f, t) <."""
+    return (fa < fb) | ((fa == fb) & (ta < tb))
+
+
+def _make_code_lengths_rows(freqs: torch.Tensor,
+                            as_arr: torch.Tensor) -> torch.Tensor:
+    """freqs (R, W) int32, as_arr (R,) int32 -> lengths (R, W) int32,
+    symbols >= as zeroed (lbzip2_tpu/ops/huffenc.py:52)."""
+    R = freqs.shape[0]
+    dev = freqs.device
+    lanes = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    live = lanes < as_arr[:, None]
+    f = torch.where(live, freqs.clamp(min=1), 0)
+    tag = MAX_ALPHA - lanes
+
+    # ascending sort by (f, tag) packed in one int32: f < 2^20, tag < 2^9
+    key = torch.where(live, (f << 9) | tag, _INF32)
+    skey = torch.sort(key, dim=1).values
+    pad = skey == _INF32
+    lf = torch.where(pad, _INF32, skey >> 9)
+    ltag = torch.where(pad, 0, skey & 511)
+    lt_ = torch.where(pad, _INF32, (1 << 9) | ltag)
+
+    nf = torch.full((R, _NN), _INF32, dtype=torch.int32, device=dev)
+    nt_ = torch.full((R, _NN), _INF32, dtype=torch.int32, device=dev)
+    nf[:, :W] = lf
+    nt_[:, :W] = lt_
+    child0 = torch.zeros((R, _NMERGE), dtype=torch.int32, device=dev)
+    child1 = torch.zeros((R, _NMERGE), dtype=torch.int32, device=dev)
+    nmerge = (as_arr - 1).clamp(min=0)
+
+    def g(arr, idx):  # row gather with JAX's index clamping
+        return torch.gather(arr, 1, idx.clamp(0, _NN - 1).long()[:, None])[:, 0]
+
+    li = torch.zeros(R, dtype=torch.int32, device=dev)
+    ii = torch.zeros(R, dtype=torch.int32, device=dev)
+    for s in range(1, _NMERGE + 1):
+        act = s <= nmerge
+        lf0, lt0 = g(nf, li), g(nt_, li)
+        lf1, lt1 = g(nf, li + 1), g(nt_, li + 1)
+        if0, it0 = g(nf, _NLEAF + ii), g(nt_, _NLEAF + ii)
+        if1, it1 = g(nf, _NLEAF + ii + 1), g(nt_, _NLEAF + ii + 1)
+        nleaf = as_arr - li
+        nint = (s - 1) - ii
+        # decision table (huff_pick_pair): ties prefer leaves
+        pick_ii = (nleaf == 0) | ((nint >= 2) & _lt(if1, it1, lf0, lt0))
+        pick_ll = ~pick_ii & ((nint == 0) |
+                              ((nleaf >= 2) & ~_lt(if0, it0, lf1, lt1)))
+        pick_il = ~pick_ii & ~pick_ll
+        c0 = torch.where(pick_ll, li, _NLEAF + ii)
+        c1 = torch.where(pick_ii, _NLEAF + ii + 1,
+                         torch.where(pick_il, li, li + 1))
+        li = torch.where(act, li + torch.where(
+            pick_ii, 0, torch.where(pick_ll, 2, 1)), li)
+        ii = torch.where(act, ii + torch.where(
+            pick_ii, 2, torch.where(pick_ll, 0, 1)), ii)
+        f0, t0 = g(nf, c0), g(nt_, c0)
+        f1, t1 = g(nf, c1), g(nt_, c1)
+        height = torch.maximum(t0 >> 17, t1 >> 17) + 1
+        nl = (((t0 >> 9) & 255) + ((t1 >> 9) & 255)) & 255
+        mt = (height << 17) | (nl << 9) | ltag[:, min(s - 1, W - 1)]
+        slot = _NLEAF + s - 1
+        nf[:, slot] = torch.where(act, f0 + f1, nf[:, slot])
+        nt_[:, slot] = torch.where(act, mt, nt_[:, slot])
+        child0[:, s - 1] = torch.where(act, c0, child0[:, s - 1])
+        child1[:, s - 1] = torch.where(act, c1, child1[:, s - 1])
+
+    # top-down depths: children of merge j have ids < _NLEAF + j, so one
+    # reverse sweep over the merges resolves every depth
+    depth = torch.zeros((R, _NN), dtype=torch.int32, device=dev)
+    for j in range(_NMERGE - 1, -1, -1):
+        act = j <= nmerge - 1
+        d = torch.where(act, depth[:, _NLEAF + j] + 1, 0)
+        for ch in (child0[:, j], child1[:, j]):
+            idx = ch.long()[:, None]
+            cur = torch.gather(depth, 1, idx)[:, 0]
+            depth.scatter_(1, idx, torch.where(act, d, cur)[:, None])
+
+    # rank profile: the d-th smallest leaf gets the d-th largest depth
+    ldep = torch.where(live, depth[:, :W].clamp(max=_HLIM), -1)
+    sdep = torch.sort(ldep, dim=1, descending=True).values
+    sym = torch.where(live, MAX_ALPHA - ltag, W)  # dead ranks -> extra col
+    out = torch.zeros((R, W + 1), dtype=torch.int32, device=dev)
+    out.scatter_(1, sym.long(), torch.where(live, sdep, 0))
+    out = out[:, :W].clone()
+    out[:, W - 1] = 0  # symbol 258 is never real (as <= 258)
+    return out
+
+
+def _em_chain(hist_g: torch.Tensor, ngroups: torch.Tensor,
+              nt: torch.Tensor, as_arr: torch.Tensor,
+              lengths0: torch.Tensor, cluster_factor: int):
+    """Full EM loop on the device (lbzip2_tpu/ops/huffenc.py:184).
+
+    hist_g (B, G, W) float32; ngroups / nt / as_arr (B,) int32;
+    lengths0 (B, 6, W) int32.  Returns (selectors (B, G) int32, freqs
+    (B, 6, W) int32, lengths (B, 6, W) int32 = the input of the last
+    E-step, iters int32).  Each iteration: E-step; stop if the selectors
+    repeat the previous iteration's; else M-step unless it was the last.
+    The convergence test is read on the host once per iteration."""
+    from lbzip2_tpu_torch.ops.chain import _em_estep_hist
+
+    B = hist_g.shape[0]
+    R = B * MAX_TREES
+    as_rows = as_arr.repeat_interleave(MAX_TREES)
+    tree_live = (torch.arange(MAX_TREES, device=hist_g.device)[None, :] <
+                 nt[:, None])[:, :, None]
+    lengths = lengths0
+    prev_sel = None
+    it = 0
+    while it < cluster_factor:
+        sel, freqs = _em_estep_hist(hist_g, ngroups, nt, lengths)
+        conv = prev_sel is not None and bool(torch.equal(sel, prev_sel))
+        it += 1
+        if conv or it >= cluster_factor:
+            break
+        new = _make_code_lengths_rows(freqs.reshape(R, W), as_rows)
+        lengths = torch.where(tree_live, new.reshape(B, MAX_TREES, W),
+                              lengths)
+        prev_sel = sel
+    return sel, freqs, lengths, torch.tensor(it, dtype=torch.int32)

@@ -1,0 +1,158 @@
+"""Port's engine (lbzip2_tpu_torch/codec/encoder.py) on the CPU, plus the
+package's contracts: no jax import, explicit devices, interop dtypes.
+
+Streams are byte-compared with the JAX package's chain-mode compress
+(JAX on the CPU) and with the host C pipeline compress_parallel.
+"""
+
+import bz2
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from lbzip2_tpu import native
+from lbzip2_tpu.codec import encoder as jenc
+from lbzip2_tpu.parallel.encode import compress_parallel
+from lbzip2_tpu_torch import device as tdevice
+from lbzip2_tpu_torch.codec import encoder
+from lbzip2_tpu_torch.interop import to_numpy, to_torch
+
+needs_native = pytest.mark.skipif(not native.native_available(),
+                                  reason="needs C toolchain")
+
+
+@pytest.fixture()
+def device_only(monkeypatch):
+    """Chain mode with host stealing off, so the device does every
+    eligible block (both packages read these from the JAX module)."""
+    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", True)
+    monkeypatch.setattr(jenc, "_HOST_STEAL", False)
+    monkeypatch.setattr(jenc, "_STEALBACK", False)
+    return jenc
+
+
+def _stream(kind):
+    rng = np.random.default_rng(11)
+    if kind == "text":
+        words = [bytes(rng.integers(97, 123, k, dtype=np.uint8))
+                 for k in rng.integers(2, 9, 200)]
+        return b" ".join(words[i] for i in rng.integers(0, 200, 2000))[:7800]
+    if kind == "digits":
+        return bytes(rng.integers(48, 58, 6000, dtype=np.uint8))
+    if kind == "abcd_runs":
+        return bytes(np.repeat(np.frombuffer(b"abcd", np.uint8), 500))
+    return bytes(rng.integers(0, 256, 8000, dtype=np.uint8))
+
+
+@needs_native
+@pytest.mark.parametrize("kind", ["text", "digits", "abcd_runs", "random"])
+def test_compress_matches_jax_and_host(device_only, kind):
+    data = _stream(kind)
+    out = encoder.compress(data, 9, device="cpu")
+    assert encoder.last_stats["device_blocks"] == 1
+    assert out == compress_parallel(data, 9)
+    assert out == device_only.compress(data, 9)
+    assert device_only.last_stats["device_blocks"] == 1
+    assert bz2.decompress(out) == data
+
+
+@needs_native
+def test_multi_batch_pipeline(device_only, monkeypatch):
+    """Several batches in flight and the end-of-stream drain, through
+    the inherited _build_batch with small buckets."""
+    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
+    monkeypatch.setattr(jenc, "_MID_CUTOFF", 8192)
+    monkeypatch.setattr(jenc, "_BATCH", 2)
+    rng = np.random.default_rng(1)
+    data = bytes(rng.integers(97, 123, size=200_000, dtype=np.uint8))
+    out = encoder.compress(data, 1, device="cpu")
+    assert out == compress_parallel(data, 1)
+    nblocks = len(native.rle1_collect(np.frombuffer(data, np.uint8),
+                                      100_000, 100_000))
+    s = encoder.last_stats
+    assert s["host_blocks"] == 0 and s["device_blocks"] == nblocks
+    assert len(s["batch_trace"]) >= 2
+    for t in s["batch_trace"]:
+        assert {"prep_s", "dispatch_s", "ready_s", "done_t",
+                "chain_stages"} <= set(t)
+
+
+def test_package_imports_no_jax():
+    code = ("import importlib, pkgutil, sys\n"
+            "import lbzip2_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'lbzip2_tpu_torch.codec.encoder' in sys.modules\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True)
+    assert r.returncode == 0, r.stderr
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tdevice.resolve("cuda")
+    with pytest.raises(RuntimeError):
+        encoder.compress(b"abc", 9)  # the default device is "cuda"
+    with pytest.raises(ValueError):
+        tdevice.resolve("meta")
+    assert tdevice.resolve("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("dtype,torch_dtype", [
+    (np.uint8, torch.uint8), (np.int32, torch.int32),
+    (np.uint32, torch.int64), (np.float32, torch.float32),
+])
+def test_interop_round_trip(dtype, torch_dtype):
+    a = np.array([0, 1, 200, 255], dtype)
+    if dtype == np.uint32:
+        a = np.array([0, 1, 2 ** 31, 2 ** 32 - 1], dtype)
+    t = to_torch(a)
+    assert t.dtype == torch_dtype
+    back = to_numpy(t, like=a)
+    assert back.dtype == a.dtype
+    np.testing.assert_array_equal(back, a)
+
+
+def test_inflight_gate_generation():
+    """A timed-out wait abandons leftover batches to an old generation:
+    a straggler finishing later must not eat a new batch's count (the
+    JAX counter resets to 0 and clamps, losing that accounting)."""
+    gate = encoder._InflightGate()
+    old = gate.inc()
+    gate.inc()
+    gate.wait_idle(timeout_s=0.05, max_inflight=0)  # times out
+    assert gate.inflight == 0
+    new = gate.inc()
+    gate.dec(old)  # straggler of the abandoned generation
+    assert gate.inflight == 1
+    gate.dec(new)
+    assert gate.inflight == 0
+    gate.wait_idle(timeout_s=0.05, max_inflight=0)  # idle: returns
+
+
+def test_drain_loop_stops_on_error():
+    """The dispatch thread's drain wait ends when a fetch worker has
+    failed, even with a batch still counted in flight."""
+    pool = encoder._TorchPool(np.zeros(1, np.uint8), [], 8, 0, True,
+                              torch.device("cpu"))
+    pool.fetch_pending = 1  # a batch nobody will ever finish
+    pool.fail(RuntimeError("fetch worker died"))
+    t = threading.Thread(target=pool._device_pipeline, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def test_token_mode_not_ported():
+    pool = encoder._TorchPool(np.zeros(1, np.uint8), [], 8, 0, True,
+                              torch.device("cpu"))
+    with pytest.raises(NotImplementedError):
+        pool._fetch_tokens([], [], None, {})
