@@ -5,20 +5,32 @@
 Phases (any failure exits non-zero before the last line is printed):
 
   1. card:   nvidia-smi name and power limit, torch and nvcc versions
-  2. build:  nvcc builds every CUDA kernel of the main path from
-             lbzip2_tpu_torch/csrc into build/lbzip2_tpu_torch
-  3. kernel: the MTF-rank kernel against its plain PyTorch version at
+  2. build:  nvcc builds every CUDA kernel of lbzip2_tpu_torch/csrc into
+             build/lbzip2_tpu_torch, one nvcc per source, all at once
+  3. mtf:    the MTF-rank kernel against its plain PyTorch version at
              (32, 901120) on real compacted BWT rows, uniform random
              symbols, an alphabet of 1 and rows with n = 0, 1 and N,
              plus the (8, 8192) bucket and a ragged (4, 12289) width;
              tolerance 0 (integer ranks must be equal); CUDA-event times
-  4. end to end: lbzip2_tpu_torch.codec.encoder.compress(data, 9,
+  4. sweeps: the compare-exchange sweep kernel against its plain
+             version at the probe's (32, 7040, 128), sub 4, 210 sweeps,
+             and at sweeps 0, 1 and 2, sub 1, int32 extremes and small
+             or odd row blocks; tolerance 0; CUDA-event times
+  5. probe:  lbzip2_tpu_torch.tools.sort_probe at (32, 901120): torch.sort
+             1 key + payload, the BWT's 8-key pass, the sweep kernel at
+             210 sweeps, with its launch count
+  6. chain:  lbzip2_tpu_torch.codec.encoder.compress(data, 9,
              device="cuda") on ~60 MB generated from the seed, run
-             twice; the warm run is timed and its launch counts read.
+             twice; the warm run is timed and its MTF launches read.
              The output must equal the repo's host C pipeline, run
              out of process as `bin/lbzip2 -9 -c`, byte for byte and
              round-trip through bz2; every device-eligible block must
              have gone through the device.
+  7. tokens: the same stream in token mode, in a child process of this
+             script with LBZ2_DEVICE_CHAIN=0 (the mode is read by the
+             inherited scheduler): warm, timed, the same bytes, every
+             eligible block on the device, bwt2_tokens dispatched and
+             bwt2_bytes never.
 
 This process imports only the port (lbzip2_tpu_torch), never the JAX
 package or JAX.
@@ -32,8 +44,10 @@ from __future__ import annotations
 
 import argparse
 import bz2
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -45,6 +59,8 @@ import torch
 BLOCK = 900_000
 ROWS, WIDTH = 32, 901120
 TEXT_BLOCKS = 64
+SWEEPS, SUB = 210, 4  # the probe's sweep count and row blocks
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
 def log(msg: str) -> None:
@@ -176,9 +192,131 @@ def kernel_phase(text: bytes, dev):
             "plain_ms": ms_p}
 
 
+def sweep_phase(dev):
+    """Sweep kernel vs plain version on every case; returns the record."""
+    from lbzip2_tpu_torch.ops import sort_sweeps
+
+    rng = np.random.default_rng(2)
+
+    def keys(shape, values=None):
+        if values is None:
+            k = rng.integers(INT32_MIN, INT32_MAX, shape, dtype=np.int32,
+                             endpoint=True)
+        else:
+            k = rng.choice(np.array(values, np.int32), shape)
+        return torch.from_numpy(k).to(dev)
+
+    full = keys((ROWS, WIDTH // 128, 128))
+    ext = keys((ROWS, WIDTH // 128, 128),
+               (INT32_MIN, INT32_MIN + 1, -1, 0, 1, INT32_MAX - 1,
+                INT32_MAX))
+    cases = {  # name: (keys, sweeps, sub)
+        "probe_32x7040x128_sub4": (full, SWEEPS, SUB),
+        "sweeps_0": (full, 0, SUB),
+        "sweeps_1": (full, 1, SUB),
+        "sweeps_2": (full, 2, SUB),
+        "sub_1": (full, SWEEPS, 1),
+        "int32_extremes": (ext, SWEEPS, SUB),
+        "small_2x64x128_sub4": (keys((2, 64, 128)), 7, 4),
+        "small_2x64x128_sub1": (keys((2, 64, 128)), 7, 1),
+        "odd_rows_3x105x128": (keys((3, 105, 128)), 5, 1),
+        "rows_32_2x96x128_sub3": (keys((2, 96, 128)), 9, 3),
+    }
+    max_err = 0
+    for name, (k, s, sub) in cases.items():
+        got = sort_sweeps.sweeps(k, s, sub)
+        want = sort_sweeps.sweeps_plain(k, s, sub)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        log(f"sweep kernel vs plain [{name}] plan "
+            f"{sort_sweeps.plan(k.shape[1] // sub)}: max_abs_err {err}")
+        assert err == 0, f"sweep kernel disagrees with plain on {name}"
+
+    ms_k = cuda_ms(lambda: sort_sweeps.sweeps(full, SWEEPS, SUB), 10)
+    ms_p = cuda_ms(lambda: sort_sweeps.sweeps_plain(full, SWEEPS, SUB), 2)
+    log(f"sort_sweeps (32, 7040, 128) sub {SUB}, {SWEEPS} sweeps: kernel "
+        f"{ms_k:.3f} ms, plain {ms_p:.3f} ms")
+    return {"name": "sort_sweeps", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/sort_sweeps.cu",
+            "replaces": "tools/tpu_sort_probe.py:77",
+            "launches": 0, "max_abs_err": max_err, "ms": ms_k,
+            "plain_ms": ms_p}
+
+
+def token_run(eligible: int) -> int:
+    """Child process of the token phase (LBZ2_DEVICE_CHAIN=0 in its
+    environment): compress the stream read from stdin twice, warm, and
+    print one JSON line of what the parent checks."""
+    from lbzip2_tpu_torch.codec import encoder
+
+    data = sys.stdin.buffer.read()
+    dev = torch.device("cuda", 0)
+    calls = {"bwt2_tokens": 0, "bwt2_bytes": 0}
+
+    def spy(name):
+        fn = getattr(encoder, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        setattr(encoder, name, counted)
+
+    spy("bwt2_tokens")
+    spy("bwt2_bytes")
+    warm = encoder.warm_device(device=dev)
+    t0 = time.time()
+    cold = encoder.compress(data, 9, device=dev)
+    first = time.time() - t0
+    for name in calls:
+        calls[name] = 0
+    t0 = time.time()
+    out = encoder.compress(data, 9, device=dev)
+    dt = time.time() - t0
+    stats = encoder.last_stats
+    print(json.dumps({
+        "warm_device_s": warm, "first_s": first, "s": dt,
+        "mbps": len(data) / dt / 1e6, "bytes": len(out),
+        "sha256": hashlib.sha256(out).hexdigest(), "same_as_first":
+        out == cold, "roundtrip": bz2.decompress(out) == data,
+        "device_blocks": stats["device_blocks"], "eligible": eligible,
+        "calls": calls, "batches": [
+            {k: t.get(k) for k in ("rows", "prep_s", "dispatch_s",
+                                   "ready_s", "expand_s")}
+            for t in stats["batch_trace"]]}), flush=True)
+    return 0
+
+
+def token_phase(data: bytes, eligible: int, ref: bytes) -> dict:
+    """Token-mode run of the stream in a child process; checks it."""
+    env = {**os.environ, "LBZ2_DEVICE_CHAIN": "0"}
+    t0 = time.time()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--token-run", str(eligible)], input=data,
+                       capture_output=True, env=env, timeout=600)
+    sys.stderr.write(r.stderr.decode(errors="replace"))
+    assert r.returncode == 0, f"token-mode child exited {r.returncode}"
+    res = json.loads(r.stdout.decode().strip().splitlines()[-1])
+    log(f"token mode child: {time.time() - t0:.1f} s, warm_device "
+        f"{res['warm_device_s']:.2f} s, first call {res['first_s']:.2f} s")
+    for i, b in enumerate(res["batches"]):
+        log(f"  token batch {i}: {json.dumps(b)}")
+    assert res["sha256"] == hashlib.sha256(ref).hexdigest(), \
+        "token-mode compress differs from the host pipeline"
+    assert res["same_as_first"], "token-mode runs differ"
+    assert res["roundtrip"], "token-mode bz2 round trip failed"
+    assert res["device_blocks"] == eligible, \
+        f"token mode: device did {res['device_blocks']} of {eligible}"
+    assert res["calls"]["bwt2_tokens"] > 0 and \
+        res["calls"]["bwt2_bytes"] == 0, f"token mode ran {res['calls']}"
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--token-run", type=int, metavar="ELIGIBLE",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -187,9 +325,12 @@ def main(argv=None) -> int:
     # device-only block encode, so the run shows the device did the work
     os.environ["LBZ2_HOST_STEAL"] = "0"
     os.environ["LBZ2_STEALBACK"] = "0"
+    if args.token_run is not None:
+        return token_run(args.token_run)
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
-    from lbzip2_tpu_torch.ops import mtf_pallas
+    from lbzip2_tpu_torch.ops import mtf_pallas, sort_sweeps
+    from lbzip2_tpu_torch.tools import sort_probe
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -199,10 +340,14 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {nvcc.stdout.strip().splitlines()[-1]}")
 
     t0 = time.time()
-    _build.load("mtf_ranks")
+    _build.build()
     log(f"build: {time.time() - t0:.2f} s")
     for name, rec in _build.build_log.items():
-        log(f"  {name}: nvcc {rec['seconds']:.2f} s\n{rec['ptxas']}")
+        log(f"  {name}: nvcc done at {rec['seconds']:.2f} s\n"
+            f"{rec['ptxas']}")
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill",
+                                             rec["ptxas"])]
+        assert spills and not any(spills), f"{name} spills registers"
 
     t0 = time.time()
     data, text = make_data(args.seed)
@@ -211,6 +356,14 @@ def main(argv=None) -> int:
         f"{time.time() - t0:.1f} s to generate")
 
     record = kernel_phase(text, dev)
+    sweep_record = sweep_phase(dev)
+
+    sort_sweeps.launches = 0
+    probe = sort_probe.run(ROWS, WIDTH, SWEEPS, SUB, device=dev, log=log)
+    sweep_record["launches"] = sort_sweeps.launches
+    assert sweep_record["launches"] > 0, \
+        "the probe never launched the sweep kernel"
+    log(f"probe: {json.dumps(probe)}")
 
     log(f"warm_device: {encoder.warm_device(device=dev):.2f} s")
     t0 = time.time()
@@ -246,8 +399,13 @@ def main(argv=None) -> int:
             t.join(timeout=30)
             assert not t.is_alive(), f"thread {t.name} still running"
 
+    tok = token_phase(data, eligible, ref)
+    log(f"compress warm, {len(data)} bytes: token mode {tok['s']:.3f} s = "
+        f"{tok['mbps']:.3f} MB/s vs chain mode {dt:.3f} s = "
+        f"{len(data) / dt / 1e6:.3f} MB/s")
+
     record["launches"] = launches
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, sweep_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
-compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared
--Xcompiler -fPIC`` into ``build/lbzip2_tpu_torch/lib<name>.so`` beside
-the package (rebuilt when the source is newer) and loaded with ctypes.
-A missing ``nvcc`` or a failed build raises: there is no fallback.
+Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
+``nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC``
+into ``build/lbzip2_tpu_torch/lib<name>.so`` beside the package (rebuilt
+when the source is newer) and loaded with ctypes, at first use or by
+``build`` ahead of it, which starts one nvcc per source at once.  A
+missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ BUILD = _PKG.parent / "build" / "lbzip2_tpu_torch"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.RLock()
 build_log: dict[str, dict] = {}  # name -> {"seconds", "ptxas"}
 
 
@@ -38,19 +39,47 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _compile(name: str, src: pathlib.Path, so: pathlib.Path) -> None:
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(src)]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent process never loads half
-    build_log[name] = {"seconds": time.time() - t0,
-                       "ptxas": proc.stderr.strip()}
+def _paths(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    return CSRC / f"{name}.cu", BUILD / f"lib{name}.so"
+
+
+def build(names=None) -> None:
+    """Compile every stale ``csrc/<name>.cu`` of ``names`` (default:
+    every source), one nvcc process per source, all started together."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _lock:
+        todo = []
+        for name in names:
+            src, so = _paths(name)
+            if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+                todo.append((name, src, so))
+        if not todo:
+            return
+        BUILD.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        t0 = time.time()
+        running = []
+        for name, src, so in todo:
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
+                   "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+                   "-o", str(tmp), str(src)]
+            running.append((name, src, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, src, so, tmp, proc in running:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src.name}:\n{err}")
+                continue
+            # atomic: a concurrent process never loads half a library
+            os.replace(tmp, so)
+            build_log[name] = {"seconds": time.time() - t0,
+                               "ptxas": err.strip()}
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -59,11 +88,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = CSRC / f"{name}.cu"
-        so = BUILD / f"lib{name}.so"
-        if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-            _compile(name, src, so)
-        _libs[name] = ctypes.CDLL(str(so))
+        if name not in _libs:
+            build((name,))
+            _libs[name] = ctypes.CDLL(str(_paths(name)[1]))
         return _libs[name]

@@ -3,18 +3,27 @@
 The scheduler is lbzip2_tpu.codec.encoder._WorkPool (block queue, host
 tail-stealing and steal-back, in-order delivery, watchdog), inherited
 as it is, with its batch shapes ``_BUCKETS`` / ``_BATCH`` /
-``_INFLIGHT`` and ``_build_batch``.  This module replaces its device
-engine, chain mode only:
+``_INFLIGHT``, ``_build_batch`` and its mode switch ``_DEVICE_CHAIN``
+(``LBZ2_DEVICE_CHAIN``, read when a pool is made).  This module
+replaces its device engine, in both modes:
 
-  dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_bytes
-                   -> event recorded after dispatch
-  fetch threads:   wait on the event -> ops/chain.chain_payloads
-                   (MTF kernel, RLE2, EM, pack on the device; headers
-                   and splice on the host)
+  chain mode (default):
+    dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_bytes
+                     -> event recorded after dispatch
+    fetch threads:   wait on the event -> ops/chain.chain_payloads
+                     (MTF kernel, RLE2, EM, pack on the device; headers
+                     and splice on the host)
+  token mode (LBZ2_DEVICE_CHAIN=0):
+    dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_tokens
+                     -> copies of tokens, run counts and primary into
+                     pinned host memory -> event recorded after them
+    fetch threads:   wait on the event -> run tokens (or, for a row over
+                     the token capacity, its raw bytes) to the host
+                     workers' C entropy coder
 
 Both halves of every batch run on one CUDA stream owned by the pool, so
 the caching allocator never hands out memory another stream still
-reads.  Token mode is not ported: ``_fetch_tokens`` raises.
+reads.
 """
 
 from __future__ import annotations
@@ -33,9 +42,9 @@ from lbzip2_tpu.codec import encoder as _ref
 from lbzip2_tpu.core import crc32
 from lbzip2_tpu.core.constants import CLUSTER_FACTOR
 from lbzip2_tpu.ref import rle1
-from lbzip2_tpu_torch.device import (record_event, resolve, upload,
-                                     wait_event)
-from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes
+from lbzip2_tpu_torch.device import (record_event, resolve, to_host,
+                                     upload, wait_event)
+from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens
 from lbzip2_tpu_torch.ops.chain import chain_payloads
 
 last_stats: dict | None = None  # engine split of the last compress call
@@ -90,7 +99,8 @@ _GATE = _InflightGate()
 
 
 class _TorchPool(_ref._WorkPool):
-    """_WorkPool whose device engine runs the port's chain on ``device``."""
+    """_WorkPool whose device engine runs the port on ``device``, in
+    chain mode or token mode as ``_ref._DEVICE_CHAIN`` says."""
 
     _NFETCH = 2  # fetch threads per pool
 
@@ -99,6 +109,7 @@ class _TorchPool(_ref._WorkPool):
         super().__init__(buf, blocks, cluster_factor, host_workers,
                          use_device)
         self.device = device
+        self.chain = _ref._DEVICE_CHAIN
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
 
@@ -133,15 +144,22 @@ class _TorchPool(_ref._WorkPool):
                 ids, spans, batch, ns, ms, tele = built
                 t0 = time.time()
                 with self._on_stream():
-                    bwt, primary = bwt2_bytes(upload(batch, self.device),
-                                              upload(ns, self.device),
-                                              upload(ms, self.device))
-                    ev = record_event(self.device)
+                    args = (upload(batch, self.device),
+                            upload(ns, self.device), upload(ms, self.device))
+                    if self.chain:
+                        outs = bwt2_bytes(*args)
+                    else:
+                        tokens, raw, counts, primary = bwt2_tokens(*args)
+                        # the copies overlap later batches' kernels; raw
+                        # rows are fetched only past the token capacity
+                        outs = (to_host(tokens), raw, to_host(counts),
+                                to_host(primary))
+                    outs += (record_event(self.device),)
                 tele["dispatch_s"] = round(time.time() - t0, 3)
                 gen = _GATE.inc()
                 with self.q_lock:
                     self.fetch_pending += 1
-                self.fetch_q.put((ids, spans, (bwt, primary, ev), tele, gen))
+                self.fetch_q.put((ids, spans, outs, tele, gen))
             # drain: fetch workers finish in the background; stop early
             # when the stream completes, the watchdog fires, or a fetch
             # worker failed (its error is the pool's result)
@@ -176,7 +194,9 @@ class _TorchPool(_ref._WorkPool):
                 return
             try:
                 with self._on_stream():
-                    self._fetch_chain(*item[:-1])
+                    fetch = self._fetch_chain if self.chain \
+                        else self._fetch_tokens
+                    fetch(*item[:-1])
             except Exception as e:  # recorded; run() re-raises it
                 if not (self.abandoned or self.complete):
                     self.fail(e)
@@ -192,8 +212,32 @@ class _TorchPool(_ref._WorkPool):
         wait_event(ev)
 
     def _fetch_tokens(self, ids, spans, outs, tele):
-        raise NotImplementedError("token mode is not ported; the torch "
-                                  "engine runs chain mode only")
+        """Token-mode completion: wait for the batch and its copies,
+        queue each row's run tokens for the host entropy coder; a row
+        over the token capacity downloads its raw bytes alone."""
+        tokens, raw, run_counts, primary, ev = outs
+        t0 = time.time()
+        self._wait_ready(ev)
+        counts = run_counts.numpy()
+        prim = primary.numpy()
+        tele["ready_s"] = round(time.time() - t0, 3)
+        t1 = time.time()
+        cap = tokens.shape[1] * 2
+        tok = tokens.numpy().view(np.uint16)
+        fresh = stale = 0
+        for row, (i, span) in enumerate(zip(ids, spans)):
+            if self.is_stale(i):  # host steal-back beat us to it
+                stale += 1
+                continue
+            if counts[row] <= cap:
+                brow = ("tok", tok[row, :counts[row]])
+            else:  # near-incompressible row: its raw bytes only
+                brow = raw[row].cpu().numpy().view(np.uint8)[
+                    :span.data.size]
+            self.entropy_q.put((i, span, brow, int(prim[row])))
+            fresh += 1
+        tele["expand_s"] = round(time.time() - t1, 3)
+        self._batch_done(tele, fresh, stale)
 
     def _fetch_chain(self, ids, spans, outs, tele):
         """Entropy-code one BWT batch on the device and deliver payloads;
@@ -229,6 +273,11 @@ class _TorchPool(_ref._WorkPool):
                 self.put_result(i, (payloads[row], int(crcs[row])))
             fresh += 1
         tele["ready_s"] = round(time.time() - t0, 3)
+        self._batch_done(tele, fresh, stale)
+
+    def _batch_done(self, tele, fresh, stale):
+        """Account a fetched batch: its completion time, the latency
+        estimate of the drain guard and the block counts."""
         tele["done_t"] = round(time.time() - self.stats["t0"], 2)
         self.last_batch_t = time.time()
         self.lat_ema = tele["ready_s"] if not self.lat_ema else \
@@ -270,9 +319,11 @@ def device_eligible(data: bytes | np.ndarray, level: int = 9,
 
 def warm_device(rows=(_ref._BATCH,), bucket: int = _ref._BUCKETS[-1],
                 device: str | torch.device = "cuda") -> float:
-    """Run the whole device chain once per (rows, bucket) shape on tiny
-    Lyndon rows: builds the CUDA kernel and warms the allocator and the
-    math libraries outside a timed stream.  Returns seconds spent."""
+    """Run the device engine of the mode in force (``_ref._DEVICE_CHAIN``)
+    once per (rows, bucket) shape on tiny Lyndon rows: the whole chain
+    (building the CUDA kernel), or the token BWT and its copies to
+    pinned memory.  Warms the allocator and the math libraries outside a
+    timed stream.  Returns seconds spent."""
     global _warmed
     dev = resolve(device)
     t0 = time.time()
@@ -281,8 +332,13 @@ def warm_device(rows=(_ref._BATCH,), bucket: int = _ref._BUCKETS[-1],
         batch[:, 3] = 1  # R = 0001: a genuine Lyndon row of length 4
         ns = np.full(r, 4, np.int32)
         ms = np.zeros(r, np.int32)
-        bwt, primary = bwt2_bytes(upload(batch, dev), upload(ns, dev),
-                                  upload(ms, dev))
+        args = (upload(batch, dev), upload(ns, dev), upload(ms, dev))
+        if not _ref._DEVICE_CHAIN:
+            tokens, _, counts, primary = bwt2_tokens(*args)
+            for t in (tokens, counts, primary):
+                to_host(t)
+            continue
+        bwt, primary = bwt2_bytes(*args)
         cmaps = np.zeros((r, 256), np.uint8)
         cmaps[:, :2] = 1
         crcs = np.zeros(r, np.uint32)
@@ -304,15 +360,15 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
                            ) -> tuple[list[bytes], list[int]]:
     """Encode all blocks with the hybrid pool on ``device``; returns
     (payloads, stored block CRCs) in block order.  The host C kernels
-    (``lbzip2_tpu.native``) are required: the device chain runs
-    ``lyndon_prep`` and ``chain_finish``."""
+    (``lbzip2_tpu.native``) are required: the device engine runs
+    ``lyndon_prep``, and ``chain_finish`` or the token entropy coder."""
     global last_stats
     if not 1 <= level <= 9:
         raise ValueError(f"level must be 1..9, got {level}")
     dev = resolve(device)
     if not native.native_available():
         raise RuntimeError("lbzip2_tpu.native is not available: the "
-                           "device chain needs its host C kernels")
+                           "device engine needs its host C kernels")
     buf = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(
         data, (bytes, bytearray)) else np.ascontiguousarray(
             data, dtype=np.uint8)

@@ -38,6 +38,17 @@ def upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """Start a device-to-host copy of ``t`` into pinned memory on the
+    current stream, without blocking (``t`` itself on the CPU).  Read
+    the result only after an event recorded behind the copy is done."""
+    if t.device.type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
 def record_event(dev: torch.device) -> torch.cuda.Event | None:
     """Event recorded on the current stream of a CUDA device (None on
     the CPU, where every op has already run)."""

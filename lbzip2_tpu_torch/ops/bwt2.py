@@ -1,6 +1,8 @@
-"""Batched BWT by suffix doubling over Lyndon conjugates (chain mode).
+"""Batched BWT by suffix doubling over Lyndon conjugates.
 
-Counterpart of the ``bwt2_bytes`` path of lbzip2_tpu/ops/bwt2.py: the
+Counterpart of lbzip2_tpu/ops/bwt2.py, both modes: ``bwt2_bytes``
+leaves the BWT rows on the device (chain mode), ``bwt2_tokens`` emits
+byte/run-length tokens for the host entropy coder (token mode).  The
 host rotates each block to its least rotation, whose suffix order is
 its rotation order, so ranks at ``i + k`` are read from an ISA extended
 with position-coded end sentinels ``n - p - 2^30`` (``_extend``).
@@ -17,7 +19,10 @@ int32, ISA (B, N) int32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from lbzip2_tpu_torch.device import record_event, resolve, to_host, upload
 
 _INF = 2 ** 31 - 1
 _BIG = 1 << 30
@@ -149,7 +154,9 @@ def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
                 ms: torch.Tensor):
     """BWT rows and primary index: (bwt (B, N) uint8, primary (B,)
     int32).  The previous byte of position 0 is the row's last byte;
-    primary = ISA[(n - m) mod n]."""
+    primary = ISA[(n - m) mod n].  Lanes >= n hold pad bytes in no
+    particular order (JAX sorts them unstably).  Chain mode keeps the
+    rows on the device."""
     B, N = blocks.shape
     idxB = _iota(B, N, blocks.device)
     nB = ns[:, None]
@@ -161,6 +168,46 @@ def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
     i0 = torch.where(ms[:, None] == 0, 0, nB - ms[:, None])
     primary = torch.gather(ISA, 1, i0.long())[:, 0]
     return sbwt, primary
+
+
+def _emit2(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
+           ms: torch.Tensor):
+    """Token-mode output (lbzip2_tpu/ops/bwt2.py::_emit2): (tokens
+    (B, N//8) int32, raw (B, N//4) int32, run_counts (B,) int32,
+    primary (B,) int32).
+
+    A token is the u16 ``byte << 8 | len`` of one run, runs split so
+    none exceeds 255 (a split every 255 bytes from the run's start);
+    two tokens pair little-endian into an int32 word, N//4 tokens per
+    row at most.  raw holds the BWT bytes four to a little-endian word.
+    Tokens past ``run_counts`` and raw bytes past n are unspecified, as
+    in JAX.  The words are assembled from bytes, so no u16 shift is
+    needed."""
+    B, N = blocks.shape
+    sbwt, primary = _emit_bytes(blocks, ISA, ns, ms)
+    raw = sbwt.contiguous().view(torch.int32)
+
+    idxB = _iota(B, N, blocks.device)
+    nB = ns[:, None]
+    valid = idxB < nB
+    change = torch.ones_like(valid)
+    change[:, 1:] = sbwt[:, 1:] != sbwt[:, :-1]
+    start = valid & change
+    runstart = torch.cummax(torch.where(start, idxB, 0), dim=1).values
+    start = start | (valid & ((idxB - runstart) % 255 == 0) &
+                     (idxB != runstart))
+    run_counts = start.sum(1, dtype=torch.int32)
+    spos, order = torch.sort(torch.where(start, idxB, _INF), dim=1,
+                             stable=True)
+    sbyte = torch.gather(sbwt, 1, order)
+    nxt = torch.cat([spos[:, 1:], torch.full_like(spos[:, :1], _INF)],
+                    dim=1)
+    length = torch.where(nxt >= _INF, nB - spos, nxt - spos)
+    length = length.clamp(0, 255).to(torch.uint8)  # dead lanes -> 0
+    TOK = N // 4  # token capacity: mean run >= 4 fits
+    tok = torch.stack([length[:, :TOK], sbyte[:, :TOK]], dim=2)
+    tokens = tok.reshape(B, 2 * TOK).view(torch.int32)
+    return tokens, raw, run_counts, primary
 
 
 def _resolve_loop(blocks, ns):
@@ -182,3 +229,160 @@ def bwt2_bytes(blocks: torch.Tensor, ns: torch.Tensor, ms: torch.Tensor):
     uint8, primary (B,) int32)."""
     ISA = _resolve_loop(blocks, ns)
     return _emit_bytes(blocks, ISA, ns, ms)
+
+
+def bwt2_tokens(blocks: torch.Tensor, ns: torch.Tensor, ms: torch.Tensor):
+    """Batched BWT emitting run tokens (token mode): blocks (B, N)
+    uint8, ns (B,) int32, ms (B,) int32 -> (tokens, raw, run_counts,
+    primary) as ``_emit2`` returns them, on the blocks' device."""
+    ISA = _resolve_loop(blocks, ns)
+    return _emit2(blocks, ISA, ns, ms)
+
+
+def bwt2_full(blocks: torch.Tensor, ns: torch.Tensor, ms: torch.Tensor):
+    """Batched BWT returning (raw (B, N//4) int32 packed rows, primary
+    (B,) int32): the rows four bytes to a little-endian word."""
+    bwt, primary = bwt2_bytes(blocks, ns, ms)
+    return bwt.contiguous().view(torch.int32), primary
+
+
+class Bwt2Task:
+    """Resumable BWT of one (B, N) batch of Lyndon conjugates on
+    ``device`` (lbzip2_tpu/ops/bwt2.py::Bwt2Task).
+
+    Drive with ready() / step() round-robin across tasks, then take
+    result() (rows downloaded, emit="tokens") or result_device()
+    (bytes left on the device, emit="bytes").  Each step dispatches one
+    ``_pass8``.  Up to ``_AHEAD`` passes run ahead of the unresolved
+    counts the host has read: a pass over a resolved ISA is the
+    identity, so one pass too many is harmless and the count's trip to
+    the host overlaps the next pass.
+
+    blocks_np: pre-rotated rows; ns: true lengths; ms: rotation offsets
+    (from native.lyndon_prep).  Rows must be primitive (m >= 0).
+    """
+
+    _AHEAD = 2
+
+    def __init__(self, blocks_np, ns, ms, emit: str = "tokens",
+                 device: str | torch.device = "cuda"):
+        if emit not in ("tokens", "bytes"):
+            raise ValueError(f"emit must be 'tokens' or 'bytes', got "
+                             f"{emit!r}")
+        self.dev = resolve(device)
+        self.N = np.asarray(blocks_np).shape[1]
+        self.ns_np = np.asarray(ns, np.int32)
+        self.blocks = upload(np.asarray(blocks_np, np.uint8), self.dev)
+        self.ns = upload(self.ns_np, self.dev)
+        self.ms = upload(np.asarray(ms, np.int32), self.dev)
+        self.ISA, cnt = _seed16(self.blocks, self.ns)
+        self.pending = [self._count(cnt)]  # unread counts, oldest first
+        self.k = 16
+        self.emit = emit
+        self.out = None
+        self.out_ev = None
+        self.done = False
+
+    def _count(self, cnt):
+        """(max unresolved count on its way to the host, event behind
+        the copy)."""
+        return to_host(cnt.max()), record_event(self.dev)
+
+    @staticmethod
+    def _is_ready(ev) -> bool:
+        return ev is None or ev.query()
+
+    @staticmethod
+    def _read(pending) -> int:
+        m, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        return int(m)
+
+    def ready(self) -> bool:
+        if self.out is not None:
+            return self._is_ready(self.out_ev)
+        if self.pending and self._is_ready(self.pending[0][1]):
+            return True
+        # room to dispatch another speculative pass?
+        return len(self.pending) < self._AHEAD and self.k <= 8 * self.N
+
+    def _emit(self):
+        self.pending.clear()
+        if self.emit == "bytes":
+            self.out = _emit_bytes(self.blocks, self.ISA, self.ns, self.ms)
+        else:
+            tokens, raw, counts, primary = _emit2(self.blocks, self.ISA,
+                                                  self.ns, self.ms)
+            # raw is fetched only for rows over the token capacity
+            self.out = (to_host(tokens), raw, to_host(counts),
+                        to_host(primary))
+        self.out_ev = record_event(self.dev)
+
+    def step(self) -> bool:
+        """Advance one step; True once the output is dispatched."""
+        if self.done:
+            return True
+        if self.out is not None:
+            self.done = True
+            return True
+        # consume any landed counts (oldest first)
+        while self.pending and self._is_ready(self.pending[0][1]):
+            if self._read(self.pending.pop(0)) == 0:
+                # resolved; later speculative passes were identities
+                self._emit()
+                return False
+        if len(self.pending) < self._AHEAD and self.k <= 8 * self.N:
+            self.ISA, cnt = _pass8(self.ISA, self.k, self.ns)
+            self.pending.append(self._count(cnt))
+            self.k *= 8
+        elif not self.pending:
+            self._emit()  # k exceeded every possible tie distance
+        elif self._read(self.pending.pop(0)) == 0:
+            self._emit()  # ahead limit reached: waited on the oldest
+        return False
+
+    def result_device(self):
+        """(bwt (B, N) uint8, primary (B,) int32) on the device
+        (emit="bytes"); nothing is downloaded."""
+        if self.emit != "bytes":
+            raise ValueError("result_device needs emit='bytes'")
+        while not self.done:
+            self.step()
+        return self.out
+
+    def result(self):
+        """(rows, primary): rows is a list of per-row uint8 BWT arrays
+        (emit="tokens").  Rows come from the run tokens when every row
+        fits the token capacity, else from the raw packed rows."""
+        if self.emit != "tokens":
+            raise ValueError("result needs emit='tokens'")
+        while not self.done:
+            self.step()
+        if self.out_ev is not None:
+            self.out_ev.synchronize()
+        tokens, raw, run_counts, primary = self.out
+        counts = run_counts.numpy()
+        cap = tokens.shape[1] * 2
+        rows = []
+        if int(counts.max()) <= cap:
+            tok = tokens.numpy().view(np.uint16)
+            for b in range(counts.shape[0]):
+                t = tok[b, :counts[b]]
+                rows.append(np.repeat((t >> 8).astype(np.uint8),
+                                      t & 0xFF)[:self.ns_np[b]])
+        else:
+            rb = raw.cpu().numpy().view(np.uint8)
+            for b in range(counts.shape[0]):
+                rows.append(rb[b, :self.ns_np[b]])
+        return rows, primary.numpy()
+
+
+def bwt2_batch(blocks_np, ns, ms, device: str | torch.device = "cuda"):
+    """Synchronous BWT of a batch on ``device``: (bwt (B, N) uint8,
+    primary (B,) int32) as numpy arrays."""
+    rows, primary = Bwt2Task(blocks_np, ns, ms, device=device).result()
+    out = np.zeros((len(rows), np.asarray(blocks_np).shape[1]), np.uint8)
+    for b, r in enumerate(rows):
+        out[b, :r.size] = r
+    return out, primary

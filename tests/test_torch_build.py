@@ -1,0 +1,64 @@
+"""The port's kernel build (lbzip2_tpu_torch/_build.py) off the card: a
+stand-in nvcc script shows that every stale source gets its own
+compiler process, that up-to-date libraries are not rebuilt and that a
+failed or missing compiler raises."""
+
+import os
+import stat
+
+import pytest
+
+from lbzip2_tpu_torch import _build
+
+FAKE_NVCC = """#!/bin/sh
+# writes the -o target and the ptxas report, or fails for bad.cu
+for a in "$@"; do last="$a"; done
+case "$last" in *bad.cu) echo "bad.cu: error" >&2; exit 1;; esac
+while [ "$1" != "-o" ]; do shift; done
+echo "lib" > "$2"
+echo "ptxas info    : 0 bytes stack frame, 0 bytes spill stores" >&2
+"""
+
+
+@pytest.fixture()
+def tree(tmp_path, monkeypatch):
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("one", "two"):
+        (csrc / f"{name}.cu").write_text("// kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD", build)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "build_log", {})
+    return csrc, build
+
+
+def test_build_compiles_every_stale_source_once(tree):
+    csrc, build = tree
+    _build.build()
+    assert sorted(_build.build_log) == ["one", "two"]
+    assert all("0 bytes spill" in r["ptxas"]
+               for r in _build.build_log.values())
+    assert sorted(os.listdir(build)) == ["libone.so", "libtwo.so"]
+    _build.build_log.clear()
+    _build.build()  # both libraries are newer than their sources
+    assert _build.build_log == {}
+
+
+def test_build_failure_raises(tree):
+    csrc, _ = tree
+    (csrc / "bad.cu").write_text("// does not compile\n")
+    with pytest.raises(RuntimeError, match="nvcc failed for bad.cu"):
+        _build.build()
+    assert sorted(_build.build_log) == ["one", "two"]
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.pathlib.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()

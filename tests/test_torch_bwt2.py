@@ -115,3 +115,154 @@ def test_lex_sort_packs_signed_keys():
     for r in range(2):
         want = np.lexsort((np.arange(64), k1[r], k0[r]))
         np.testing.assert_array_equal(to_numpy(perm)[r], want)
+
+
+def _token_blocks(kind, seed):
+    """Eight blocks of one kind, sizes up to the 8192 bucket."""
+    rng = np.random.default_rng(seed)
+    sizes = (8192, 5000, 4096, 1000, 300, 100, 9, 2)
+    out = []
+    for n in sizes:
+        if kind == "text":
+            words = [bytes(rng.integers(97, 123, k, dtype=np.uint8))
+                     for k in rng.integers(2, 9, 100)]
+            b = np.frombuffer(b" ".join(
+                words[i] for i in rng.integers(0, 100, n))[:n], np.uint8)
+        elif kind == "digits":
+            b = rng.integers(48, 58, n, np.uint8)
+        elif kind == "abcd_runs":
+            b = np.repeat(np.frombuffer(b"abcd", np.uint8), -(-n // 4))[:n]
+        elif kind == "long_run":  # runs of 255+ split into several tokens
+            b = np.full(n, 120, np.uint8)
+            b[rng.integers(0, n, max(1, n // 700))] = 7
+        else:  # random bytes: ~n runs, over the N // 4 token capacity
+            b = rng.integers(0, 256, n, np.uint8)
+        b = b.copy()
+        b[-1] ^= 0x5A  # keep primitive
+        out.append(b)
+    return out
+
+
+TOKEN_KINDS = ["text", "digits", "abcd_runs", "long_run", "random"]
+
+
+def _assert_tokens_equal(got, want, ns):
+    """tokens on [:run_counts] (capped at capacity), raw on [:n], run
+    counts and primary; both as JAX-layout numpy arrays."""
+    tok_t, raw_t, cnt_t, prim_t = got
+    tok_j, raw_j, cnt_j, prim_j = want
+    np.testing.assert_array_equal(cnt_t, cnt_j)
+    np.testing.assert_array_equal(prim_t, prim_j)
+    assert tok_t.shape == tok_j.shape and raw_t.shape == raw_j.shape
+    cap = tok_j.shape[1] * 2
+    tt, tj = tok_t.view(np.uint16), tok_j.view(np.uint16)
+    rt, rj = raw_t.view(np.uint8), raw_j.view(np.uint8)
+    for r in range(cnt_j.shape[0]):
+        c = min(int(cnt_j[r]), cap)
+        np.testing.assert_array_equal(tt[r, :c], tj[r, :c], f"row {r}")
+        np.testing.assert_array_equal(rt[r, :ns[r]], rj[r, :ns[r]])
+
+
+@pytest.mark.parametrize("kind", TOKEN_KINDS)
+def test_emit2_matches_jax(kind):
+    rot, ns, ms = _batch(_token_blocks(kind, 5))
+    isa = np.asarray(jbwt2._resolve_loop(jnp.asarray(rot), jnp.asarray(ns)))
+    want = jbwt2.emit2(jnp.asarray(rot), jnp.asarray(isa), jnp.asarray(ns),
+                       jnp.asarray(ms))
+    got = bwt2._emit2(to_torch(rot), to_torch(isa), to_torch(ns),
+                      to_torch(ms))
+    _assert_tokens_equal([to_numpy(t) for t in got],
+                         [np.asarray(a) for a in want], ns)
+
+
+@pytest.mark.parametrize("kind", TOKEN_KINDS)
+def test_bwt2_tokens_matches_jax_and_oracle(kind):
+    blocks = _token_blocks(kind, 6)
+    rot, ns, ms = _batch(blocks)
+    want = [np.asarray(a) for a in jbwt2.bwt2_tokens(
+        jnp.asarray(rot), jnp.asarray(ns), jnp.asarray(ms))]
+    got = [to_numpy(t) for t in bwt2.bwt2_tokens(
+        to_torch(rot), to_torch(ns), to_torch(ms))]
+    _assert_tokens_equal(got, want, ns)
+    tok, raw, counts, prim = got
+    overflow = counts > tok.shape[1] * 2
+    if kind == "random":
+        assert overflow.any()
+    elif kind in ("abcd_runs", "long_run"):
+        assert not overflow.any()
+    for i, b in enumerate(blocks):
+        exp_bwt, exp_idx = ref_bwt(b)
+        if overflow[i]:
+            row = raw.view(np.uint8)[i, :b.size]
+        else:
+            t = tok.view(np.uint16)[i, :counts[i]]
+            assert (t & 0xFF).max() <= 255 and (t & 0xFF).min() >= 1
+            row = np.repeat((t >> 8).astype(np.uint8), t & 0xFF)
+        np.testing.assert_array_equal(row, exp_bwt)
+        assert int(prim[i]) == exp_idx
+
+
+def test_bwt2_full_matches_jax():
+    rot, ns, ms = _batch(_token_blocks("text", 7))
+    raw_j, prim_j = jbwt2.bwt2_full(jnp.asarray(rot), jnp.asarray(ns),
+                                    jnp.asarray(ms))
+    raw_t, prim_t = bwt2.bwt2_full(to_torch(rot), to_torch(ns), to_torch(ms))
+    rt, rj = to_numpy(raw_t).view(np.uint8), np.asarray(raw_j).view(np.uint8)
+    for r in range(B):
+        np.testing.assert_array_equal(rt[r, :ns[r]], rj[r, :ns[r]])
+    np.testing.assert_array_equal(to_numpy(prim_t), np.asarray(prim_j))
+
+
+@pytest.mark.parametrize("kind", ["text", "deep_repeats", "random"])
+def test_bwt2_batch_matches_jax_and_oracle(kind):
+    """The synchronous token-mode batch: rows from the tokens, or from
+    the raw rows once a row overflows the token capacity (random)."""
+    blocks = (_blocks(kind, 8) if kind == "deep_repeats"
+              else _token_blocks(kind, 8))
+    rot, ns, ms = _batch(blocks)
+    out_t, prim_t = bwt2.bwt2_batch(rot, ns, ms, device="cpu")
+    out_j, prim_j = jbwt2.bwt2_batch(rot, ns, ms)
+    np.testing.assert_array_equal(prim_t, np.asarray(prim_j))
+    for i, b in enumerate(blocks):
+        exp_bwt, exp_idx = ref_bwt(b)
+        np.testing.assert_array_equal(out_t[i, :b.size], exp_bwt)
+        np.testing.assert_array_equal(out_t[i, :b.size], out_j[i, :b.size])
+        assert int(prim_t[i]) == exp_idx
+
+
+@pytest.mark.parametrize("emit", ["tokens", "bytes"])
+def test_bwt2_task_stepping(emit):
+    """ready()/step() until done, one pass a step, then the result of
+    the task's emit mode; equal to JAX's task and to the oracle."""
+    blocks = _blocks("deep_repeats", 9)
+    rot, ns, ms = _batch(blocks)
+    task = bwt2.Bwt2Task(rot, ns, ms, emit=emit, device="cpu")
+    steps = 0
+    while not task.step():
+        assert task.ready()
+        steps += 1
+        assert steps < 50
+    assert task.done and steps >= 2
+    if emit == "bytes":
+        bwt_t, prim_t = task.result_device()
+        rows = [to_numpy(bwt_t)[i, :b.size] for i, b in enumerate(blocks)]
+        prim_t = to_numpy(prim_t)
+        with pytest.raises(ValueError):
+            task.result()
+        jt = jbwt2.Bwt2Task(rot, ns, ms, emit="bytes")
+        bwt_j, prim_j = jt.result_device()
+        for i, b in enumerate(blocks):
+            np.testing.assert_array_equal(rows[i],
+                                          np.asarray(bwt_j)[i, :b.size])
+    else:
+        rows, prim_t = task.result()
+        with pytest.raises(ValueError):
+            task.result_device()
+        rows_j, prim_j = jbwt2.Bwt2Task(rot, ns, ms).result()
+        for r, rj in zip(rows, rows_j):
+            np.testing.assert_array_equal(r, rj)
+    np.testing.assert_array_equal(prim_t, np.asarray(prim_j))
+    for i, b in enumerate(blocks):
+        exp_bwt, exp_idx = ref_bwt(b)
+        np.testing.assert_array_equal(rows[i], exp_bwt)
+        assert int(prim_t[i]) == exp_idx

@@ -6,6 +6,7 @@ Streams are byte-compared with the JAX package's chain-mode compress
 """
 
 import bz2
+import os
 import subprocess
 import sys
 import threading
@@ -151,8 +152,103 @@ def test_drain_loop_stops_on_error():
     assert not t.is_alive()
 
 
-def test_token_mode_not_ported():
-    pool = encoder._TorchPool(np.zeros(1, np.uint8), [], 8, 0, True,
-                              torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        pool._fetch_tokens([], [], None, {})
+@pytest.fixture()
+def token_mode(monkeypatch):
+    """Token mode (LBZ2_DEVICE_CHAIN=0) with host stealing off."""
+    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", False)
+    monkeypatch.setattr(jenc, "_HOST_STEAL", False)
+    monkeypatch.setattr(jenc, "_STEALBACK", False)
+    return jenc
+
+
+@needs_native
+@pytest.mark.parametrize("kind", ["text", "digits", "abcd_runs", "random"])
+def test_token_mode_matches_jax_and_host(token_mode, kind):
+    """random overflows the token capacity: its row goes as raw bytes."""
+    data = _stream(kind)
+    out = encoder.compress(data, 9, device="cpu")
+    s = encoder.last_stats
+    assert s["device_blocks"] == 1 and s["host_blocks"] == 0
+    assert "expand_s" in s["batch_trace"][0]
+    assert out == compress_parallel(data, 9)
+    assert out == token_mode.compress(data, 9)
+    assert token_mode.last_stats["device_blocks"] == 1
+    assert bz2.decompress(out) == data
+
+
+@needs_native
+def test_token_mode_multi_batch_with_raw_rows(token_mode, monkeypatch):
+    """Several token-mode batches in flight, rows within the token
+    capacity and rows over it (random bytes) in one stream."""
+    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
+    monkeypatch.setattr(jenc, "_MID_CUTOFF", 8192)
+    monkeypatch.setattr(jenc, "_BATCH", 2)
+    rng = np.random.default_rng(2)
+    parts = [bytes(rng.integers(97, 100, 100_000, dtype=np.uint8)),
+             bytes(rng.integers(0, 256, 100_000, dtype=np.uint8)),
+             bytes(np.repeat(rng.integers(0, 256, 10_000, dtype=np.uint8),
+                             20))]
+    data = b"".join(parts)
+    out = encoder.compress(data, 1, device="cpu")
+    assert out == compress_parallel(data, 1)
+    assert out == token_mode.compress(data, 1)
+    nblocks = len(native.rle1_collect(np.frombuffer(data, np.uint8),
+                                      100_000, 100_000))
+    s = encoder.last_stats
+    assert s["host_blocks"] == 0 and s["device_blocks"] == nblocks
+    assert len(s["batch_trace"]) >= 2
+    for t in s["batch_trace"]:
+        assert {"prep_s", "dispatch_s", "ready_s", "expand_s",
+                "done_t"} <= set(t)
+    assert bz2.decompress(out) == data
+
+
+@needs_native
+@pytest.mark.parametrize("chain", [True, False])
+def test_device_chain_switch_picks_the_engine(monkeypatch, chain):
+    """The pool reads the JAX module's _DEVICE_CHAIN when it runs:
+    False dispatches bwt2_tokens and never bwt2_bytes, True the other
+    way round; warm_device warms the same mode."""
+    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", chain)
+    monkeypatch.setattr(jenc, "_HOST_STEAL", False)
+    monkeypatch.setattr(encoder, "_warmed", False)
+    calls = {"bwt2_tokens": 0, "bwt2_bytes": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(encoder, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(encoder, name, counted)
+    used = "bwt2_bytes" if chain else "bwt2_tokens"
+    encoder.warm_device(rows=(1,), bucket=8192, device="cpu")
+    data = _stream("text")
+    assert encoder.compress(data, 9, device="cpu") == \
+        compress_parallel(data, 9)
+    assert calls == {name: 2 * (name == used) for name in calls}
+
+
+@needs_native
+@pytest.mark.parametrize("env,mode", [("0", "tokens"), (None, "chain")])
+def test_device_chain_env_selects_mode(env, mode):
+    """LBZ2_DEVICE_CHAIN=0 in the environment runs token mode; unset,
+    chain mode (the JAX package's documented switch)."""
+    code = ("import numpy as np\n"
+            "from lbzip2_tpu_torch.codec import encoder\n"
+            "rng = np.random.default_rng(1)\n"
+            "data = bytes(rng.integers(97, 100, 6000, dtype=np.uint8))\n"
+            "encoder.compress(data, 9, device='cpu')\n"
+            "t = encoder.last_stats['batch_trace'][0]\n"
+            "print('tokens' if 'expand_s' in t else 'chain'"
+            " if 'chain_stages' in t else 'none')\n"
+            "import threading\n"  # no engine thread inside torch at exit
+            "for th in threading.enumerate():\n"
+            "    if th.name.startswith('lbz2-'):\n"
+            "        th.join(timeout=60)\n")
+    envs = {k: v for k, v in os.environ.items()
+            if k != "LBZ2_DEVICE_CHAIN"}
+    envs.update(LBZ2_HOST_STEAL="0", LBZ2_STEALBACK="0")
+    if env is not None:
+        envs["LBZ2_DEVICE_CHAIN"] = env
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=envs, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == mode
