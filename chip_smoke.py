@@ -31,6 +31,31 @@ Phases (any failure exits non-zero before the last line is printed):
              inherited scheduler): warm, timed, the same bytes, every
              eligible block on the device, bwt2_tokens dispatched and
              bwt2_bytes never.
+  8. huffdec: the Huffman group-decode kernel against its plain version
+             on every block of the phase-6 stream (lbzip2's layout), of
+             bz2.compress of a three-block prefix (bzip2's layout), a
+             tiny block, a skewed block with long codes, a one-symbol
+             block (b"zzz") and 20,000 groups over unordered random
+             tables (lanes where v < base, the signed shift); every
+             lane of syms and end, tolerance 0; CUDA-event times on one
+             full 900 kB text block
+  9. ibwt:   the inverse-BWT kernel against its plain version at
+             (8, 901120) on real rows and primaries of phase 8's text
+             blocks, on rows of n = 1 and 2, one repeated byte and
+             uniform random bytes, on a batch with 3 live rows padded
+             with n = 1, idx = 0, and at a ragged (3, 10001); tolerance
+             0; CUDA-event times on the text batch
+ 10. decode: lbzip2_tpu_torch.parallel.decode.decompress_parallel(blob,
+             device="cuda") with both device stages on, on the phase-6
+             stream and on bz2.compress(data, 9): equal to data, both
+             kernels launched, an IBWT row for every block; warm MB/s
+             beside the host C path (both switches off)
+ 11. cli:    python -m lbzip2_tpu_torch in child processes with
+             LBZIP2_TPU_ENGINE=device and both switches on, on a
+             three-block input: -9 -c equals bin/lbzip2 -9 -c, -d -c and
+             lbzcat return the data, a flipped CRC byte exits with the
+             JAX CLI's code and message, and CUDA_VISIBLE_DEVICES=""
+             makes compress fail (no CPU fallback).
 
 This process imports only the port (lbzip2_tpu_torch), never the JAX
 package or JAX.
@@ -312,6 +337,211 @@ def token_phase(data: bytes, eligible: int, ref: bytes) -> dict:
     return res
 
 
+def huffdec_phase(chain_blob: bytes, data: bytes, dev):
+    """Group-decode kernel vs plain version on every block of several
+    streams; returns the record."""
+    from lbzip2_tpu_torch.ops import huffdec
+    from lbzip2_tpu_torch.parallel.decode import block_payloads
+
+    rng = np.random.default_rng(3)
+    skew = np.where(rng.random(80000) < 0.995, 120,
+                    rng.integers(0, 256, 80000)).astype(np.uint8)
+    streams = {
+        "chain_stream": chain_blob,
+        "bz2_prefix_3_blocks": bz2.compress(data[:3 * BLOCK], 9),
+        "tiny": bz2.compress(b"abracadabra", 9),
+        "long_codes": bz2.compress(skew.tobytes(), 9),
+        "one_symbol": bz2.compress(b"zzz", 9),  # RLE1 keeps 3 alone
+    }
+    max_err, timed = 0, None
+    for name, blob in streams.items():
+        arr = np.frombuffer(blob, np.uint8)
+        errs, groups = [], 0
+        for pos in block_payloads(blob):
+            err, _, meta, inputs = huffdec.group_inputs(arr, arr.size * 8,
+                                                        pos)
+            assert err == 0, f"{name}: boundary walk error {err}"
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in inputs]
+            k_syms, k_end = huffdec.decode_groups(*args)
+            p_syms, p_end = huffdec.decode_groups_plain(*args)
+            torch.cuda.synchronize()
+            errs.append(max(int((k_syms.long() - p_syms.long()).abs().max()),
+                            int((k_end.long() - p_end.long()).abs().max())))
+            groups += meta["ngroups"]
+            if timed is None:  # the stream's first block: 900 kB of text
+                timed = args
+        max_err = max(max_err, *errs)
+        log(f"huffdec kernel vs plain [{name}]: {len(errs)} blocks, "
+            f"{groups} groups, max_abs_err {max(errs)}")
+        assert max(errs) == 0, f"huffdec kernel disagrees on {name}"
+    # unordered tables: lanes with v < base[k] (the signed shift)
+    base = rng.integers(0, 2**20 + 2**18, (6, 22)).astype(np.uint32)
+    base[:, 21] = 2**20
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(
+            np.uint32).view(np.int32),
+        rng.integers(0, 32 * 4096, 20000).astype(np.int32),
+        rng.integers(0, 6, 20000).astype(np.int32), base.view(np.int32),
+        rng.integers(-300, 300, (6, 22)).astype(np.int32),
+        rng.integers(0, 258, (6, 258)).astype(np.int32))]
+    k_syms, k_end = huffdec.decode_groups(*args)
+    p_syms, p_end = huffdec.decode_groups_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((k_syms.long() - p_syms.long()).abs().max()),
+              int((k_end.long() - p_end.long()).abs().max()))
+    log(f"huffdec kernel vs plain [arbitrary_tables]: 20000 groups, "
+        f"max_abs_err {err}")
+    assert err == 0, "huffdec kernel disagrees on arbitrary tables"
+    max_err = max(max_err, err)
+    ms_k =cuda_ms(lambda: huffdec.decode_groups(*timed), 20)
+    ms_p = cuda_ms(lambda: huffdec.decode_groups_plain(*timed), 3)
+    log(f"huffdec one 900 kB text block ({timed[1].numel()} groups): "
+        f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
+    return {"name": "huffdec", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/huffdec.cu",
+            "replaces": "lbzip2_tpu/ops/huffdec.py:32",
+            "launches": 0, "max_abs_err": max_err, "ms": ms_k,
+            "plain_ms": ms_p}
+
+
+def ibwt_phase(chain_blob: bytes, dev):
+    """Inverse-BWT kernel vs plain version at (8, 901120) and edge
+    cases; returns the record."""
+    from lbzip2_tpu_torch.ops import huffdec, ibwt
+    from lbzip2_tpu_torch.parallel.decode import _IBWT_N, block_payloads
+
+    B = 8
+    arr = np.frombuffer(chain_blob, np.uint8)
+    text = []  # (bwt, idx) of the stream's first 8 blocks (text)
+    for pos in block_payloads(chain_blob)[:B]:
+        err, _, bwt, idx, rnd = huffdec.decode_block_device(
+            arr, arr.size * 8, pos, dev)
+        assert err == 0 and not rnd
+        text.append((bwt, idx))
+
+    def batch(rows, width=_IBWT_N):
+        b = np.zeros((B, width), np.uint8)
+        ns = np.ones(B, np.int32)  # pad rows: n = 1, idx = 0
+        idxs = np.zeros(B, np.int32)
+        for r, (bwt, idx) in enumerate(rows):
+            b[r, :bwt.size], ns[r], idxs[r] = bwt, bwt.size, idx
+        return tuple(torch.from_numpy(a).to(dev) for a in (b, ns, idxs))
+
+    rng = np.random.default_rng(4)
+    uni = rng.integers(0, 256, _IBWT_N, dtype=np.uint8)
+    small = rng.integers(0, 5, 10001, dtype=np.uint8)
+    cases = {
+        "text_8x901120": batch(text),
+        "edges_n1_n2_repeat_uniform": batch([
+            (uni[:1], 0), (uni[:2], 1),
+            (np.full(BLOCK, 0x61, np.uint8), 12345),
+            (uni, int(rng.integers(0, _IBWT_N)))]),
+        "padded_3_live": batch(text[:3]),
+        "ragged_3x10001": batch([(small, 7), (small[:5000], 4999),
+                                 (small[:1], 0)], width=10001),
+    }
+    max_err = 0
+    for name, args in cases.items():
+        got = ibwt.ibwt_rows(*args)
+        want = ibwt.ibwt_plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        log(f"ibwt kernel vs plain [{name}]: max_abs_err {err}")
+        assert err == 0, f"ibwt kernel disagrees with plain on {name}"
+    args = cases["text_8x901120"]
+    ms_k = cuda_ms(lambda: ibwt.ibwt_rows(*args), 10)
+    ms_p = cuda_ms(lambda: ibwt.ibwt_plain(*args), 2)
+    log(f"ibwt (8, 901120) text rows: kernel {ms_k:.3f} ms, plain "
+        f"{ms_p:.3f} ms")
+    return {"name": "ibwt", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/ibwt.cu",
+            "replaces": "lbzip2_tpu/ops/ibwt.py:22",
+            "launches": 0, "max_abs_err": max_err, "ms": ms_k,
+            "plain_ms": ms_p}
+
+
+def decode_phase(name: str, blob: bytes, data: bytes, dev) -> dict:
+    """decompress_parallel with both device stages on (cold, then warm
+    with the launch counts reset), then the host C path; checks both."""
+    from lbzip2_tpu_torch.ops import huffdec, ibwt
+    from lbzip2_tpu_torch.parallel import decode
+
+    decode.DEVICE_HUFF = decode.DEVICE_IBWT = True
+    t0 = time.time()
+    assert decode.decompress_parallel(blob, device=dev) == data, \
+        f"{name}: device decode (first run) differs from the data"
+    first = time.time() - t0
+    huffdec.launches = ibwt.launches = 0
+    t0 = time.time()
+    out = decode.decompress_parallel(blob, device=dev)
+    dt = time.time() - t0
+    res = {"huffdec_launches": huffdec.launches,
+           "ibwt_launches": ibwt.launches, **decode.last_stats}
+    assert out == data, f"{name}: device decode differs from the data"
+    assert res["huffdec_launches"] >= res["blocks"] > 0, res
+    assert res["ibwt_launches"] > 0 and \
+        res["ibwt_rows"] >= res["blocks"], res
+    decode.DEVICE_HUFF = decode.DEVICE_IBWT = False
+    t0 = time.time()
+    host = decode.decompress_parallel(blob, device=dev)
+    dt_host = time.time() - t0
+    assert host == data, f"{name}: host decode differs from the data"
+    log(f"decompress {name} ({len(blob)} bytes -> {len(data)}): device "
+        f"stages {dt:.3f} s = {len(data) / dt / 1e6:.3f} MB/s (first run "
+        f"{first:.2f} s), host C path {dt_host:.3f} s = "
+        f"{len(data) / dt_host / 1e6:.3f} MB/s; {json.dumps(res)}")
+    return res
+
+
+LBZCAT = ("import sys; from lbzip2_tpu_torch.cli import main; "
+          "sys.exit(main(['lbzcat']))")
+
+
+def cli_phase(few: bytes) -> None:
+    """The port's front end in child processes on a few-block input."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("LBZIP2", "BZIP2", "BZIP", "LBZIP2_TPU_ENGINE",
+                         "LBZ2_DEVICE_HUFF", "LBZ2_DEVICE_DECODE")}
+    env = {**base, "LBZIP2_TPU_ENGINE": "device", "LBZ2_DEVICE_HUFF": "1",
+           "LBZ2_DEVICE_DECODE": "1"}
+    port = [sys.executable, "-m", "lbzip2_tpu_torch"]
+
+    def run(cmd, inp, env):
+        t0 = time.time()
+        r = subprocess.run(cmd, input=inp, capture_output=True, env=env,
+                           cwd=root, timeout=300)
+        log(f"  cli {' '.join(cmd[1:])[:60]}: exit {r.returncode}, "
+            f"{len(r.stdout)} bytes out, {time.time() - t0:.1f} s")
+        return r
+
+    ref = host_reference(few)
+    c = run(port + ["-9", "-c"], few, env)
+    assert c.returncode == 0 and c.stdout == ref, \
+        f"port CLI compress differs from bin/lbzip2: {c.stderr[-2000:]}"
+    d = run(port + ["-d", "-c"], c.stdout, env)
+    assert d.returncode == 0 and d.stdout == few, d.stderr[-2000:]
+    z = run([sys.executable, "-c", LBZCAT], c.stdout, env)
+    assert z.returncode == 0 and z.stdout == few, z.stderr[-2000:]
+    bad = bytearray(ref)
+    bad[10] ^= 0xFF  # the first block's stored CRC
+    mine = run(port + ["-d", "-c"], bytes(bad), env)
+    theirs = run([sys.executable, os.path.join(root, "bin", "lbzip2"),
+                  "-d", "-c"], bytes(bad),
+                 {**base, "LBZIP2_TPU_ENGINE": "device"})
+    last = [r.stderr.decode(errors="replace").strip().splitlines()[-1:]
+            for r in (mine, theirs)]
+    log(f"  corrupt stream: port {mine.returncode} {last[0]}, JAX CLI "
+        f"{theirs.returncode} {last[1]}")
+    assert mine.returncode == theirs.returncode != 0 and last[0] == last[1]
+    nocuda = run(port + ["-9", "-c"], few, {**env,
+                                           "CUDA_VISIBLE_DEVICES": ""})
+    assert nocuda.returncode != 0 and not nocuda.stdout, \
+        "the port CLI compressed without a CUDA device"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -394,18 +624,30 @@ def main(argv=None) -> int:
     assert stats["device_blocks"] == eligible, \
         f"device did {stats['device_blocks']} of {eligible} blocks"
     assert launches > 0, "main path never launched the MTF kernel"
-    for t in threading.enumerate():
-        if t.name.startswith("lbz2-"):
-            t.join(timeout=30)
-            assert not t.is_alive(), f"thread {t.name} still running"
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("lbz2-")]
+    assert not alive, f"engine threads outlived compress: {alive}"
 
     tok = token_phase(data, eligible, ref)
     log(f"compress warm, {len(data)} bytes: token mode {tok['s']:.3f} s = "
         f"{tok['mbps']:.3f} MB/s vs chain mode {dt:.3f} s = "
         f"{len(data) / dt / 1e6:.3f} MB/s")
 
+    huff_record = huffdec_phase(out, data, dev)
+    ibwt_record = ibwt_phase(out, dev)
+    decoded = {"chain_stream": decode_phase("chain_stream", out, data, dev)}
+    t0 = time.time()
+    blob = bz2.compress(data, 9)
+    log(f"bz2.compress(data, 9): {len(blob)} bytes, "
+        f"{time.time() - t0:.2f} s")
+    decoded["bz2_stream"] = decode_phase("bz2_stream", blob, data, dev)
+    huff_record["launches"] = decoded["chain_stream"]["huffdec_launches"]
+    ibwt_record["launches"] = decoded["chain_stream"]["ibwt_launches"]
+    cli_phase(data[:3 * BLOCK])
+
     record["launches"] = launches
-    print(json.dumps({"kernels": [record, sweep_record]}))
+    print(json.dumps({"kernels": [record, sweep_record, huff_record,
+                                  ibwt_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

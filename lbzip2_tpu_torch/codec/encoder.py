@@ -96,6 +96,8 @@ class _InflightGate:
 
 
 _GATE = _InflightGate()
+_JOIN_S = 120.0  # bound on joining a finished pool's threads (one
+                 # chain-mode batch's EM loop has taken 11 s on the H100)
 
 
 class _TorchPool(_ref._WorkPool):
@@ -112,6 +114,44 @@ class _TorchPool(_ref._WorkPool):
         self.chain = _ref._DEVICE_CHAIN
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
+        self._engines: list[threading.Thread] = []   # device + host threads
+        self._fetchers: list[threading.Thread] = []  # the device's fetchers
+
+    def run(self):
+        """The inherited ``run``, then a bounded join of every thread the
+        pool started (device, host and fetch threads), so that no
+        ``lbz2-`` thread of this pool outlives the ``compress`` call: a
+        process that exits at once must not tear down the interpreter
+        under a thread inside torch.  The one exception is a pool the
+        watchdog abandoned: its device engine is wedged by definition,
+        and its daemon threads are left to finish or die with the
+        process, as in the JAX engine."""
+        try:
+            yield from super().run()
+        finally:
+            if not self.abandoned:
+                self._join_threads()
+
+    def _join_threads(self):
+        # The inherited run() starts the engine threads before its first
+        # result, but each registers itself only once it runs; the device
+        # thread registers its fetchers before starting them, so once it
+        # is joined the fetcher list is whole.
+        deadline = time.time() + _JOIN_S
+        expected = int(self.use_device) + self.host_workers
+        while len(self._engines) < expected and time.time() < deadline:
+            time.sleep(0.001)
+        for threads in (self._engines, self._fetchers):
+            for t in list(threads):
+                t.join(timeout=max(0.0, deadline - time.time()))
+
+    def device_loop(self):
+        self._engines.append(threading.current_thread())
+        super().device_loop()
+
+    def host_loop(self):
+        self._engines.append(threading.current_thread())
+        super().host_loop()
 
     def _on_stream(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None
@@ -124,8 +164,10 @@ class _TorchPool(_ref._WorkPool):
         _GATE.wait_idle()  # don't queue behind a previous pool's tail
         nfetchers = self._NFETCH
         for w in range(nfetchers):
-            threading.Thread(target=self._fetch_worker,
-                             name=f"lbz2-fetch{w}", daemon=True).start()
+            t = threading.Thread(target=self._fetch_worker,
+                                 name=f"lbz2-fetch{w}", daemon=True)
+            self._fetchers.append(t)
+            t.start()
         try:
             while not (self.abandoned or self.complete):
                 if self.error is not None:
@@ -193,6 +235,11 @@ class _TorchPool(_ref._WorkPool):
             if item is None:
                 return
             try:
+                if all(self.is_stale(i) for i in item[0]):
+                    # the host delivered every row: skip the batch's
+                    # entropy stage (this also ends the pool's run sooner)
+                    self.stats["stale_rows"] += len(item[0])
+                    continue
                 with self._on_stream():
                     fetch = self._fetch_chain if self.chain \
                         else self._fetch_tokens

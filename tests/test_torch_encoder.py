@@ -238,11 +238,7 @@ def test_device_chain_env_selects_mode(env, mode):
             "encoder.compress(data, 9, device='cpu')\n"
             "t = encoder.last_stats['batch_trace'][0]\n"
             "print('tokens' if 'expand_s' in t else 'chain'"
-            " if 'chain_stages' in t else 'none')\n"
-            "import threading\n"  # no engine thread inside torch at exit
-            "for th in threading.enumerate():\n"
-            "    if th.name.startswith('lbz2-'):\n"
-            "        th.join(timeout=60)\n")
+            " if 'chain_stages' in t else 'none')\n")
     envs = {k: v for k, v in os.environ.items()
             if k != "LBZ2_DEVICE_CHAIN"}
     envs.update(LBZ2_HOST_STEAL="0", LBZ2_STEALBACK="0")
@@ -252,3 +248,47 @@ def test_device_chain_env_selects_mode(env, mode):
                        text=True, env=envs, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1] == mode
+
+
+_FEW_BLOCKS = (
+    "import numpy as np\n"
+    "from lbzip2_tpu.codec import encoder as jenc\n"
+    "from lbzip2_tpu_torch.codec import encoder\n"
+    "jenc._BUCKETS, jenc._MID_CUTOFF, jenc._BATCH = (8192, 131072), 8192, 2\n"
+    "rng = np.random.default_rng(1)\n"
+    "data = bytes(rng.integers(97, 123, 300_000, dtype=np.uint8))\n"
+    "encoder.compress(data, 1, device='cpu')\n")
+
+
+@needs_native
+def test_process_exits_cleanly_right_after_compress():
+    """Chain mode with host stealing on: the host finishes the stream
+    while a fetch thread still holds a device batch.  The process exits
+    the moment compress returns and must not abort in teardown."""
+    envs = {k: v for k, v in os.environ.items()
+            if k not in ("LBZ2_HOST_STEAL", "LBZ2_STEALBACK",
+                         "LBZ2_DEVICE_CHAIN")}
+    for _ in range(3):
+        r = subprocess.run([sys.executable, "-c", _FEW_BLOCKS],
+                           capture_output=True, text=True, env=envs,
+                           timeout=300)
+        assert r.returncode == 0, r.stderr
+        assert "terminate called" not in r.stderr
+
+
+@needs_native
+@pytest.mark.parametrize("steal", [True, False])
+def test_no_engine_thread_outlives_compress(monkeypatch, steal):
+    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", True)
+    monkeypatch.setattr(jenc, "_HOST_STEAL", steal)
+    monkeypatch.setattr(jenc, "_STEALBACK", steal)
+    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
+    monkeypatch.setattr(jenc, "_MID_CUTOFF", 8192)
+    monkeypatch.setattr(jenc, "_BATCH", 2)
+    rng = np.random.default_rng(1)
+    data = bytes(rng.integers(97, 123, 300_000, dtype=np.uint8))
+    assert encoder.compress(data, 1, device="cpu") == \
+        compress_parallel(data, 1)
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("lbz2-")]
+    assert not alive, alive
