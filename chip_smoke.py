@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--measure]
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -21,14 +21,20 @@ Phases (any failure exits non-zero before the last line is printed):
              210 sweeps, with its launch count
   6. chain:  lbzip2_tpu_torch.codec.encoder.compress(data, 9,
              device="cuda") on ~60 MB generated from the seed, run
-             twice; the warm run is timed and its MTF launches read.
-             The output must equal the repo's host C pipeline, run
-             out of process as `bin/lbzip2 -9 -c`, byte for byte and
+             twice; the warm run is timed and its MTF and code-length
+             launches read: every M-step of the run must have launched
+             the code-length kernel and none the plain version.  The
+             output must equal the repo's host C pipeline, run out of
+             process as `bin/lbzip2 -9 -c`, byte for byte and
              round-trip through bz2; every device-eligible block must
-             have gone through the device.
+             have gone through the device.  Then the same call once
+             under torch.profiler for the device's idle share; with
+             --measure also once with the M-step's plain version in the
+             kernel's place (the whole stream at the speed before the
+             kernel, most of a minute).
   7. tokens: the same stream in token mode, in a child process of this
-             script with LBZ2_DEVICE_CHAIN=0 (the mode is read by the
-             inherited scheduler): warm, timed, the same bytes, every
+             script with LBZ2_DEVICE_CHAIN=0 (the mode is read when the
+             pool is made): warm, timed, the same bytes, every
              eligible block on the device, bwt2_tokens dispatched and
              bwt2_bytes never.
   8. huffdec: the Huffman group-decode kernel against its plain version
@@ -46,16 +52,37 @@ Phases (any failure exits non-zero before the last line is printed):
              with n = 1, idx = 0, and at a ragged (3, 10001); tolerance
              0; CUDA-event times on the text batch
  10. decode: lbzip2_tpu_torch.parallel.decode.decompress_parallel(blob,
-             device="cuda") with both device stages on, on the phase-6
-             stream and on bz2.compress(data, 9): equal to data, both
-             kernels launched, an IBWT row for every block; warm MB/s
-             beside the host C path (both switches off)
+             device="cuda") and decompress_stream (the CLI's default
+             engine) with both device stages on, on the phase-6 stream
+             and on bz2.compress(data, 9): equal to data, both kernels
+             launched, one Huffman launch and one IBWT row for every
+             block (no block decoded twice); warm MB/s beside the host
+             C path (both switches off); with --measure also a run
+             under torch.profiler for the idle share
  11. cli:    python -m lbzip2_tpu_torch in child processes with
              LBZIP2_TPU_ENGINE=device and both switches on, on a
              three-block input: -9 -c equals bin/lbzip2 -9 -c, -d -c and
              lbzcat return the data, a flipped CRC byte exits with the
              JAX CLI's code and message, and CUDA_VISIBLE_DEVICES=""
              makes compress fail (no CPU fallback).
+ 12. code lengths: the M-step's code-length kernel against its plain
+             version, tolerance 0, on the (192, 259) frequencies of
+             every M-step of one text batch of the stream, random
+             frequencies with heavy ties, all-equal frequencies,
+             alphabets of 0 to 4, 257 and 258 symbols, Fibonacci
+             frequencies up to the key limit (the deepest tree, the
+             clamp at 30), at R = 6 and R = 192, and on the same inputs
+             against the host C make_code_lengths2 (native.em_mstep);
+             CUDA-event times at R = 192; then the whole entropy chain
+             of that batch (chain_payloads) with the kernel and with
+             the plain version in its place, the same payloads, with
+             the stage times of both.  (It runs right after phase 3, on
+             that phase's BWT batch.)
+
+Every kernel record carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and the operations its function needs on this run's
+inputs, by any algorithm, over 67 Tops/s (the card's rate outside the
+tensor cores).
 
 This process imports only the port (lbzip2_tpu_torch), never the JAX
 package or JAX.
@@ -153,8 +180,56 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_S = 67e12     # float32 / int32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    or operations over the peak rate, whichever is larger.  No single
+    PyTorch call computes any of the five kernels' functions, so there
+    is no library time to set beside them."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "library_ms": None,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def idle_share(name: str, fn):
+    """Run ``fn`` once under torch.profiler and log the device's idle
+    share: 1 - (union of the trace's device intervals: kernels, copies,
+    memsets) / wall.  Returns fn's result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e6  # the profiler's microseconds
+    assert spans, f"{name}: the profiler recorded no device interval"
+    log(f"idle share [{name}]: {1 - busy / wall:.3f} (device busy "
+        f"{busy:.3f} s of {wall:.3f} s profiled wall, {len(spans)} "
+        f"device intervals)")
+    return out
+
+
+def max_err_of(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
 def kernel_phase(text: bytes, dev):
-    """MTF kernel vs plain version at (32, 901120); returns the record."""
+    """MTF kernel vs plain version at (32, 901120); returns the record
+    and the BWT batch it was taken on (bwt, ns, cmaps, primary)."""
     from lbzip2_tpu_torch.codec.encoder import lyndon_rows
     from lbzip2_tpu_torch.ops import mtf_pallas
     from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes
@@ -168,9 +243,9 @@ def kernel_phase(text: bytes, dev):
     cmaps = np.stack([np.bincount(b, minlength=256) > 0
                       for b in blocks]).astype(np.uint8)
     t0 = time.time()
-    bwt, _ = bwt2_bytes(torch.from_numpy(batch).to(dev),
-                        torch.from_numpy(ns).to(dev),
-                        torch.from_numpy(ms).to(dev))
+    bwt, primary = bwt2_bytes(torch.from_numpy(batch).to(dev),
+                              torch.from_numpy(ns).to(dev),
+                              torch.from_numpy(ms).to(dev))
     torch.cuda.synchronize()
     log(f"bwt2_bytes (32, 901120) text batch: {time.time() - t0:.3f} s")
     real = _compact_syms(bwt, torch.from_numpy(cmaps).to(dev))
@@ -210,11 +285,134 @@ def kernel_phase(text: bytes, dev):
     ms_p = cuda_ms(lambda: mtf_pallas.mtf_ranks_plain(syms, nn), 2)
     log(f"mtf_ranks (32, 901120) real rows: kernel {ms_k:.3f} ms, "
         f"plain {ms_p:.3f} ms")
-    return {"name": "mtf_ranks", "route": "cuda",
-            "source": "lbzip2_tpu_torch/csrc/mtf_ranks.cu",
-            "replaces": "lbzip2_tpu/ops/mtf_pallas.py:81",
+    # in and out (B, N) int32 and ns; a rank needs no fewer than one
+    # operation a symbol, whatever the algorithm
+    record = {"name": "mtf_ranks", "route": "cuda",
+              "source": "lbzip2_tpu_torch/csrc/mtf_ranks.cu",
+              "replaces": "lbzip2_tpu/ops/mtf_pallas.py:81",
+              "launches": 0, "max_abs_err": max_err, "ms": ms_k,
+              "plain_ms": ms_p,
+              **bound(2 * syms.numel() * 4 + nn.numel() * 4,
+                      int(nn.sum()))}
+    return record, (bwt, ns, cmaps, primary)
+
+
+def code_length_cases(real: list, dev) -> dict:
+    """name -> (freqs (B, 6, 259) int32, as (B,) int32) on the host; a
+    row is one tree, its alphabet size that of its block."""
+    rng = np.random.default_rng(5)
+    fib = [1, 1]
+    while fib[-1] + fib[-2] < 2 ** 22:  # f << 9 must stay below 2^31
+        fib.append(fib[-1] + fib[-2])
+    fibs = np.ones((4, 6, 259), np.int64)
+    fibs[0, :, :len(fib)] = fib
+    fibs[1, :, :len(fib)] = fib[::-1]
+    fibs[2, :, 100:100 + len(fib)] = fib
+    fibs[3] = 2 ** 20 - 1
+    edge_as = np.array([0, 1, 2, 3, 4, 257, 258, 258], np.int32)
+    cases = {f"real_mstep_{i}": fa for i, fa in enumerate(real)}
+    cases.update({
+        "heavy_ties_192": (rng.integers(0, 4, (32, 6, 259)),
+                           rng.integers(2, 259, 32)),
+        "all_equal": (np.full((8, 6, 259), 7), edge_as),
+        "edge_alphabets_random": (rng.integers(0, 900000, (8, 6, 259)),
+                                  edge_as),
+        "edge_alphabets_zero_freqs": (np.zeros((8, 6, 259)), edge_as),
+        "fibonacci": (fibs, np.array([len(fib), 258, 258, 258])),
+        "one_block_6_rows": (rng.integers(0, 50, (1, 6, 259)),
+                             np.array([200])),
+        "random_192": (rng.integers(0, 900000, (32, 6, 259)),
+                       rng.integers(2, 259, 32)),
+    })
+    return {k: (np.asarray(f, np.int32), np.asarray(a, np.int32))
+            for k, (f, a) in cases.items()}
+
+
+def code_lengths_phase(batch, dev):
+    """Code-length kernel vs its plain version and vs the host C
+    make_code_lengths2; returns the record."""
+    from lbzip2_tpu_torch import native
+    from lbzip2_tpu_torch.ops import huffenc
+    from lbzip2_tpu_torch.ops.chain import chain_payloads
+
+    bwt, ns, cmaps, primary = batch
+    real = []  # (freqs (32, 6, 259), as (32,)) of every M-step
+
+    wrapper = huffenc.make_code_lengths_rows
+
+    def recorder(freqs, as_rows):
+        real.append((freqs.reshape(-1, 6, huffenc.W).cpu().numpy(),
+                     as_rows[::6].cpu().numpy()))
+        return wrapper(freqs, as_rows)
+
+    huffenc.make_code_lengths_rows = recorder
+    try:
+        chain_payloads(bwt, ns, cmaps, primary.cpu().numpy().astype(np.int32),
+                       np.zeros(ROWS, np.uint32))
+    finally:
+        huffenc.make_code_lengths_rows = wrapper
+    assert real, "the text batch ran no M-step"
+
+    max_err = 0
+    for name, (f, a) in code_length_cases(real, dev).items():
+        rows = torch.from_numpy(f.reshape(-1, huffenc.W)).to(dev)
+        as_rows = torch.from_numpy(np.repeat(a, 6)).to(dev)
+        got = huffenc.make_code_lengths_rows(rows, as_rows)
+        want = huffenc._make_code_lengths_rows(rows, as_rows)
+        torch.cuda.synchronize()
+        err = max_err_of(got, want)
+        # host C: alphabets of 2 and more, every tree of a block live
+        ok = a >= 2
+        c_len = np.zeros(f[ok].shape, np.uint8)
+        native.em_mstep(np.maximum(f[ok], 0).astype(np.uint32), a[ok],
+                        np.full(int(ok.sum()), 6, np.int32), c_len)
+        got_c = got.reshape(f.shape).cpu().numpy()[ok]
+        err_c = int(np.abs(got_c.astype(np.int64) - c_len).max()) \
+            if ok.any() else 0
+        max_err = max(max_err, err, err_c)
+        log(f"code_lengths kernel [{name}] {tuple(rows.shape)}: vs plain "
+            f"max_abs_err {err}, vs host C ({int(ok.sum()) * 6} rows) "
+            f"{err_c}, longest {int(got.max())}")
+        assert err == 0, f"code_lengths kernel disagrees with plain: {name}"
+        assert err_c == 0, f"code_lengths kernel disagrees with C: {name}"
+
+    f, a = real[0]
+    rows = torch.from_numpy(f.reshape(-1, huffenc.W)).to(dev)
+    as_rows = torch.from_numpy(np.repeat(a, 6)).to(dev)
+    ms_k = cuda_ms(lambda: huffenc.make_code_lengths_rows(rows, as_rows), 50)
+    ms_p = cuda_ms(lambda: huffenc._make_code_lengths_rows(rows, as_rows), 2)
+    log(f"code_lengths (192, 259) first M-step of a text batch: kernel "
+        f"{ms_k:.4f} ms, plain {ms_p:.3f} ms")
+    # the batch's whole entropy chain, the kernel against the plain version
+    idxs = primary.cpu().numpy().astype(np.int32)
+    payloads, stages = {}, {}
+    for which, fn in (("kernel", wrapper),
+                      ("plain", huffenc._make_code_lengths_rows)):
+        huffenc.make_code_lengths_rows = fn
+        try:
+            stages[which] = {}
+            t0 = time.time()
+            payloads[which] = chain_payloads(
+                bwt, ns, cmaps, idxs, np.zeros(ROWS, np.uint32),
+                times=stages[which])
+            stages[which]["total"] = round(time.time() - t0, 3)
+        finally:
+            huffenc.make_code_lengths_rows = wrapper
+        log(f"chain_payloads of the text batch, {len(real)} M-steps, "
+            f"{which} M-step: {json.dumps(stages[which])}")
+    assert payloads["kernel"] == payloads["plain"], \
+        "the batch's payloads differ between the kernel and the plain M-step"
+    # a row needs a comparison sort of its `as` leaves, as - 1 merges and
+    # one depth and one length for each leaf, whatever the algorithm
+    alpha = np.repeat(a, 6).astype(np.int64)
+    ops = int((alpha * np.ceil(np.log2(np.maximum(alpha, 2))) +
+               3 * alpha).sum())
+    return {"name": "code_lengths", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/code_lengths.cu",
+            "replaces": "lbzip2_tpu/ops/huffenc.py:52",
             "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p}
+            "plain_ms": ms_p,
+            **bound(2 * rows.numel() * 4 + as_rows.numel() * 4, ops)}
 
 
 def sweep_phase(dev):
@@ -266,7 +464,9 @@ def sweep_phase(dev):
             "source": "lbzip2_tpu_torch/csrc/sort_sweeps.cu",
             "replaces": "tools/tpu_sort_probe.py:77",
             "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p}
+            "plain_ms": ms_p,
+            # keys in and out; a sweep is a min and a max for each pair
+            **bound(2 * full.numel() * 4, SWEEPS * full.numel())}
 
 
 def token_run(eligible: int) -> int:
@@ -394,15 +594,20 @@ def huffdec_phase(chain_blob: bytes, data: bytes, dev):
         f"max_abs_err {err}")
     assert err == 0, "huffdec kernel disagrees on arbitrary tables"
     max_err = max(max_err, err)
-    ms_k =cuda_ms(lambda: huffdec.decode_groups(*timed), 20)
+    groups_t = timed[1].numel()
+    ms_k = cuda_ms(lambda: huffdec.decode_groups(*timed), 20)
     ms_p = cuda_ms(lambda: huffdec.decode_groups_plain(*timed), 3)
-    log(f"huffdec one 900 kB text block ({timed[1].numel()} groups): "
+    log(f"huffdec one 900 kB text block ({groups_t} groups): "
         f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
     return {"name": "huffdec", "route": "cuda",
             "source": "lbzip2_tpu_torch/csrc/huffdec.cu",
             "replaces": "lbzip2_tpu/ops/huffdec.py:32",
             "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p}
+            "plain_ms": ms_p,
+            # every input once, syms (G, 50) and end (G,) out; a symbol
+            # is 20 compares against the bases and about 6 more
+            **bound(sum(a.numel() for a in timed) * 4 + groups_t * 51 * 4,
+                    groups_t * 50 * 26)}
 
 
 def ibwt_phase(chain_blob: bytes, dev):
@@ -459,12 +664,17 @@ def ibwt_phase(chain_blob: bytes, dev):
             "source": "lbzip2_tpu_torch/csrc/ibwt.cu",
             "replaces": "lbzip2_tpu/ops/ibwt.py:22",
             "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p}
+            "plain_ms": ms_p,
+            # bytes in and out; an inverse BWT is linear, no fewer than
+            # one operation a position
+            **bound(2 * args[0].numel() + 8 * B, int(args[1].sum()))}
 
 
-def decode_phase(name: str, blob: bytes, data: bytes, dev) -> dict:
-    """decompress_parallel with both device stages on (cold, then warm
-    with the launch counts reset), then the host C path; checks both."""
+def decode_phase(name: str, blob: bytes, data: bytes, dev,
+                 profiled: bool = False) -> dict:
+    """decompress_parallel and decompress_stream with both device stages
+    on (cold, then warm with the launch counts reset), then the host C
+    path; checks all three."""
     from lbzip2_tpu_torch.ops import huffdec, ibwt
     from lbzip2_tpu_torch.parallel import decode
 
@@ -480,9 +690,37 @@ def decode_phase(name: str, blob: bytes, data: bytes, dev) -> dict:
     res = {"huffdec_launches": huffdec.launches,
            "ibwt_launches": ibwt.launches, **decode.last_stats}
     assert out == data, f"{name}: device decode differs from the data"
-    assert res["huffdec_launches"] >= res["blocks"] > 0, res
+    # one launch and one row for each block: none decoded twice
+    assert res["huffdec_launches"] == res["blocks"] > 0, res
     assert res["ibwt_launches"] > 0 and \
-        res["ibwt_rows"] >= res["blocks"], res
+        res["ibwt_rows"] == res["blocks"], res
+    if profiled:
+        again = idle_share(
+            f"decompress_parallel {name}, device stages",
+            lambda: decode.decompress_parallel(blob, device=dev))
+        assert again == data, f"{name}: profiled device decode differs"
+    # the CLI's default engine: the streaming decoder, same switches
+    huffdec.launches = ibwt.launches = 0
+    parts, view = [], memoryview(blob)
+    cursor = [0]
+
+    def read_chunk(n):
+        chunk = view[cursor[0]:cursor[0] + n]
+        cursor[0] += len(chunk)
+        return bytes(chunk)
+
+    t0 = time.time()
+    n_in, n_out = decode.decompress_stream(read_chunk, parts.append,
+                                           device=dev)
+    dt_stream = time.time() - t0
+    st = {"huffdec_launches": huffdec.launches,
+          "ibwt_launches": ibwt.launches, **decode.last_stats}
+    assert b"".join(parts) == data and (n_in, n_out) == \
+        (len(blob), len(data)), f"{name}: stream decode differs"
+    assert st["huffdec_launches"] == st["blocks"] == res["blocks"] and \
+        st["ibwt_launches"] > 0 and st["ibwt_rows"] == st["blocks"], st
+    log(f"decompress_stream {name}: device stages {dt_stream:.3f} s = "
+        f"{len(data) / dt_stream / 1e6:.3f} MB/s; {json.dumps(st)}")
     decode.DEVICE_HUFF = decode.DEVICE_IBWT = False
     t0 = time.time()
     host = decode.decompress_parallel(blob, device=dev)
@@ -545,6 +783,9 @@ def cli_phase(few: bytes) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--measure", action="store_true",
+                    help="also run the whole stream with the plain M-step "
+                    "and the decode phase under the profiler")
     ap.add_argument("--token-run", type=int, metavar="ELIGIBLE",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -559,7 +800,7 @@ def main(argv=None) -> int:
         return token_run(args.token_run)
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
-    from lbzip2_tpu_torch.ops import mtf_pallas, sort_sweeps
+    from lbzip2_tpu_torch.ops import huffenc, mtf_pallas, sort_sweeps
     from lbzip2_tpu_torch.tools import sort_probe
 
     dev = torch.device("cuda", 0)
@@ -585,7 +826,9 @@ def main(argv=None) -> int:
     log(f"data: {len(data)} bytes, {eligible} device-eligible blocks, "
         f"{time.time() - t0:.1f} s to generate")
 
-    record = kernel_phase(text, dev)
+    record, text_batch = kernel_phase(text, dev)
+    lengths_record = code_lengths_phase(text_batch, dev)
+    del text_batch
     sweep_record = sweep_phase(dev)
 
     sort_sweeps.launches = 0
@@ -600,20 +843,44 @@ def main(argv=None) -> int:
     cold = encoder.compress(data, 9, device=dev)
     log(f"compress (first run): {time.time() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats(dev)
-    mtf_pallas.launches = 0
+    # count the M-steps the engine asks for, and the plain version's
+    # calls: on the card every M-step must be a launch of the kernel
+    msteps = {"wrapper": 0, "plain": 0}
+
+    def counted(name, fn):
+        def call(*a):
+            msteps[name] += 1
+            return fn(*a)
+        return call
+
+    wrapper, plain = huffenc.make_code_lengths_rows, \
+        huffenc._make_code_lengths_rows
+    huffenc.make_code_lengths_rows = counted("wrapper", wrapper)
+    huffenc._make_code_lengths_rows = counted("plain", plain)
+    mtf_pallas.launches = huffenc.launches = 0
     t0 = time.time()
     out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
-    launches = mtf_pallas.launches
+    launches, em_launches = mtf_pallas.launches, huffenc.launches
+    huffenc.make_code_lengths_rows = wrapper
+    huffenc._make_code_lengths_rows = plain
     stats = encoder.last_stats
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"compress (warm run): {dt:.3f} s = {len(data) / dt / 1e6:.3f} "
         f"MB/s, {len(out)} bytes out, peak device memory "
-        f"{peak / 2**30:.2f} GiB, mtf launches {launches}")
-    for i, tele in enumerate(stats["batch_trace"]):
-        log(f"  batch {i}: rows {tele['rows']} prep {tele['prep_s']} s "
-            f"dispatch {tele['dispatch_s']} s ready {tele['ready_s']} s "
-            f"chain_stages {json.dumps(tele.get('chain_stages'))}")
+        f"{peak / 2**30:.2f} GiB, mtf launches {launches}, code_lengths "
+        f"launches {em_launches} for {msteps['wrapper']} M-steps "
+        f"({msteps['plain']} plain)")
+
+    def log_batches(stats):
+        for i, tele in enumerate(stats["batch_trace"]):
+            log(f"  batch {i}: rows {tele['rows']} prep {tele['prep_s']} s "
+                f"dispatch {tele['dispatch_s']} s ready {tele['ready_s']} s "
+                f"chain_stages {json.dumps(tele.get('chain_stages'))}")
+
+    log_batches(stats)
+    assert em_launches == msteps["wrapper"] > 0 and msteps["plain"] == 0, \
+        f"M-steps off the kernel: {msteps}, {em_launches} launches"
 
     t0 = time.time()
     ref = host_reference(data)
@@ -628,6 +895,22 @@ def main(argv=None) -> int:
              if t.name.startswith("lbz2-")]
     assert not alive, f"engine threads outlived compress: {alive}"
 
+    again = idle_share("compress, chain mode", lambda: encoder.compress(
+        data, 9, device=dev))
+    assert again == ref, "profiled compress differs"
+    if args.measure:
+        # the same call with the M-step's plain version in the kernel's place
+        huffenc.make_code_lengths_rows = huffenc._make_code_lengths_rows
+        t0 = time.time()
+        before = encoder.compress(data, 9, device=dev)
+        dt_plain = time.time() - t0
+        huffenc.make_code_lengths_rows = wrapper
+        assert before == ref, "compress with the plain M-step differs"
+        log(f"compress with the plain M-step: {dt_plain:.3f} s = "
+            f"{len(data) / dt_plain / 1e6:.3f} MB/s against {dt:.3f} s = "
+            f"{len(data) / dt / 1e6:.3f} MB/s with the kernel")
+        log_batches(encoder.last_stats)
+
     tok = token_phase(data, eligible, ref)
     log(f"compress warm, {len(data)} bytes: token mode {tok['s']:.3f} s = "
         f"{tok['mbps']:.3f} MB/s vs chain mode {dt:.3f} s = "
@@ -635,19 +918,22 @@ def main(argv=None) -> int:
 
     huff_record = huffdec_phase(out, data, dev)
     ibwt_record = ibwt_phase(out, dev)
-    decoded = {"chain_stream": decode_phase("chain_stream", out, data, dev)}
+    decoded = {"chain_stream": decode_phase("chain_stream", out, data, dev,
+                                            args.measure)}
     t0 = time.time()
     blob = bz2.compress(data, 9)
     log(f"bz2.compress(data, 9): {len(blob)} bytes, "
         f"{time.time() - t0:.2f} s")
-    decoded["bz2_stream"] = decode_phase("bz2_stream", blob, data, dev)
+    decoded["bz2_stream"] = decode_phase("bz2_stream", blob, data, dev,
+                                         args.measure)
     huff_record["launches"] = decoded["chain_stream"]["huffdec_launches"]
     ibwt_record["launches"] = decoded["chain_stream"]["ibwt_launches"]
     cli_phase(data[:3 * BLOCK])
 
     record["launches"] = launches
+    lengths_record["launches"] = em_launches
     print(json.dumps({"kernels": [record, sweep_record, huff_record,
-                                  ibwt_record]}))
+                                  ibwt_record, lengths_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

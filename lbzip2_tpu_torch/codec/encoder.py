@@ -1,34 +1,45 @@
-"""Production compressor: the hybrid device + host pool on a PyTorch device.
+"""Production compressor: the hybrid device + host work pool on a PyTorch
+device.  Counterpart of lbzip2_tpu/codec/encoder.py.
 
-The scheduler is lbzip2_tpu.codec.encoder._WorkPool (block queue, host
-tail-stealing and steal-back, in-order delivery, watchdog), inherited
-as it is, with its batch shapes ``_BUCKETS`` / ``_BATCH`` /
-``_INFLIGHT``, ``_build_batch`` and its mode switch ``_DEVICE_CHAIN``
-(``LBZ2_DEVICE_CHAIN``, read when a pool is made).  This module
-replaces its device engine, in both modes:
+Scheduling is the lbzip2 work pool over heterogeneous engines: a device
+engine groups blocks into fixed-shape (B, N) batches with several
+batches in flight; host workers run the C entropy stage for finished
+device BWTs and, whenever no entropy work is queued, steal whole blocks
+from the tail of the queue for host-side encode.  The device takes
+blocks from the head, the host from the tail; they meet in the middle.
+Device-claimed blocks stay stealable: when the host would otherwise
+idle it steals claimed blocks back; whichever engine finishes a block
+first wins and the loser's late duplicate is dropped, so the hybrid
+never loses to host-only.  Fully periodic blocks (no Lyndon conjugate)
+always take the host path: their tie order is a host-side convention.
+
+The device engine, in both modes (``_DEVICE_CHAIN``, set from
+``LBZ2_DEVICE_CHAIN`` and read when a pool is made):
 
   chain mode (default):
     dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_bytes
                      -> event recorded after dispatch
-    fetch threads:   wait on the event -> ops/chain.chain_payloads
+    fetch thread:    wait on the event -> ops/chain.chain_payloads
                      (MTF kernel, RLE2, EM, pack on the device; headers
                      and splice on the host)
   token mode (LBZ2_DEVICE_CHAIN=0):
     dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_tokens
                      -> copies of tokens, run counts and primary into
                      pinned host memory -> event recorded after them
-    fetch threads:   wait on the event -> run tokens (or, for a row over
+    fetch thread:    wait on the event -> run tokens (or, for a row over
                      the token capacity, its raw bytes) to the host
                      workers' C entropy coder
 
 Both halves of every batch run on one CUDA stream owned by the pool, so
 the caching allocator never hands out memory another stream still
-reads.
+reads.  One fetch thread finishes the batches in order: a second one
+measured no faster on an H100 once the M-step was a kernel (PERF.md).
 """
 
 from __future__ import annotations
 
 import contextlib
+import heapq
 import os
 import queue
 import threading
@@ -37,15 +48,52 @@ import time
 import numpy as np
 import torch
 
-from lbzip2_tpu import native
-from lbzip2_tpu.codec import encoder as _ref
-from lbzip2_tpu.core import crc32
-from lbzip2_tpu.core.constants import CLUSTER_FACTOR
-from lbzip2_tpu.ref import rle1
+from lbzip2_tpu_torch import native
+from lbzip2_tpu_torch.core import crc32
+from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
 from lbzip2_tpu_torch.device import (record_event, resolve, to_host,
                                      upload, wait_event)
 from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens
 from lbzip2_tpu_torch.ops.chain import chain_payloads
+from lbzip2_tpu_torch.ref import rle1
+
+# Static device shape buckets: one production bucket (covers
+# MAX_BLOCK_SIZE with ~0.1% padding) and one tiny bucket so CPU tests
+# exercise the device path cheaply.  Mid-size blocks (level < 9, stream
+# tails) go to the host engine, which handles them at full speed anyway.
+_BUCKETS = (8192, 901120)
+_MID_CUTOFF = 262144  # blocks in (8192, _MID_CUTOFF] -> host engine
+
+# Device-batch rows per dispatch; short batches are padded with copies
+# of row 0.
+_BATCH = int(os.environ.get("LBZ2_DEVICE_BATCH", "32"))
+
+# Batches kept in flight on the device queue simultaneously.
+_INFLIGHT = int(os.environ.get("LBZ2_DEVICE_INFLIGHT", "3"))
+
+_DEVICE = os.environ.get("LBZ2_DEVICE", "1") != "0"
+
+# Diagnostic: disable host tail-stealing (device-only block encode).
+_HOST_STEAL = os.environ.get("LBZ2_HOST_STEAL", "1") != "0"
+
+# Steal-back of device-claimed blocks when the host would otherwise
+# idle.  Grace period: steal only when the device has not completed a
+# batch for this long (0 completions ever = steal immediately).
+_STEALBACK = os.environ.get("LBZ2_STEALBACK", "1") != "0"
+_STEALBACK_GRACE_S = float(os.environ.get("LBZ2_STEALBACK_GRACE_S",
+                                          "10"))
+
+# Drain guard (take_head): stop device claims when the host pool would
+# finish the remaining queue faster than one device batch round trip.
+# The latency estimate is fitted from observed batch completions but
+# never below this floor.
+_DRAIN_LAT_FLOOR_S = float(os.environ.get("LBZ2_DRAIN_LAT_FLOOR_S",
+                                          "2.0"))
+
+# Device entropy chain: run MTF+RLE2+EM+bit-pack on the device and
+# download only compressed payloads (ops/chain.py).  LBZ2_DEVICE_CHAIN=0
+# selects the token path (device BWT + host token entropy).
+_DEVICE_CHAIN = os.environ.get("LBZ2_DEVICE_CHAIN", "1") == "1"
 
 last_stats: dict | None = None  # engine split of the last compress call
 _warmed = False                 # warm_device() ran in this process
@@ -100,86 +148,257 @@ _JOIN_S = 120.0  # bound on joining a finished pool's threads (one
                  # chain-mode batch's EM loop has taken 11 s on the H100)
 
 
-class _TorchPool(_ref._WorkPool):
-    """_WorkPool whose device engine runs the port on ``device``, in
-    chain mode or token mode as ``_ref._DEVICE_CHAIN`` says."""
+def _bucket_for(n: int) -> int | None:
+    """Device bucket for a block of n bytes; None -> host engine."""
+    if n <= _BUCKETS[0]:
+        return _BUCKETS[0]
+    if n <= _MID_CUTOFF:
+        return None
+    if n <= _BUCKETS[-1]:
+        return _BUCKETS[-1]
+    raise ValueError(f"block too large: {n}")
 
-    _NFETCH = 2  # fetch threads per pool
+
+def _entropy_payload(buf, span, bwt_row, bwt_idx, cluster_factor):
+    """Host entropy stage for one block (C kernels; the pool is made
+    only when they are available).
+
+    bwt_row is either the BWT byte row, or ("tok", u16_run_tokens), the
+    device download format, consumed directly by the token MTF (no 900k
+    byte-row expansion on the host)."""
+    n = span.data.size
+    crc_stored = (native.crc32_block(buf[span.start:span.end])
+                  ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    if isinstance(bwt_row, tuple):
+        payload = native.encode_payload_from_tokens(
+            bwt_row[1], np.asarray(span.cmap, np.uint8),
+            int(bwt_idx), crc_stored, cluster_factor, n_bytes=n)
+    else:
+        payload = native.encode_payload(
+            bwt_row[:n], np.asarray(span.cmap, np.uint8),
+            int(bwt_idx), crc_stored, cluster_factor)
+    return payload, crc_stored
+
+
+def _host_block(buf, span, cluster_factor):
+    brow, bidx = native.bwt(span.data, scratch=True)
+    return _entropy_payload(buf, span, brow, bidx, cluster_factor)
+
+
+class _EdfQueue:
+    """EDF priority queue for entropy work: items pop smallest block id
+    first (the reference's earliest-deadline-first pqueues keyed on
+    struct position, src/process.c:36-63), so the block the in-order
+    consumer needs next is always finished first.  close() replaces a
+    sticky sentinel: after close, get() returns None once drained."""
+
+    def __init__(self):
+        self._h: list = []
+        self._cv = threading.Condition()
+        self._closed = False
+        self._seq = 0  # tie-break: duplicate ids pop in arrival order
+
+    def put(self, item):
+        with self._cv:
+            self._seq += 1
+            heapq.heappush(self._h, (item[0], self._seq, item))
+            self._cv.notify()
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    def get(self, block=True, timeout=None):
+        """Smallest-id item, else None (empty+non-blocking, closed, or
+        timed out — callers re-poll their higher-priority sources)."""
+        with self._cv:
+            if self._h:
+                return heapq.heappop(self._h)[2]
+            if not block or self._closed:
+                return None
+            self._cv.wait(timeout)
+            if self._h:
+                return heapq.heappop(self._h)[2]
+            return None
+
+    def empty(self):
+        with self._cv:
+            return not self._h
+
+
+class _TorchPool:
+    """Hybrid scheduler (device head-consumer + host tail-stealers)
+    whose device engine runs on ``device``, in chain mode or token mode
+    as ``_DEVICE_CHAIN`` says when the pool is made."""
 
     def __init__(self, buf, blocks, cluster_factor, host_workers,
                  use_device, device: torch.device):
-        super().__init__(buf, blocks, cluster_factor, host_workers,
-                         use_device)
+        self.buf = buf
+        self.blocks = blocks
+        self.cf = cluster_factor
+        self.results: dict[int, tuple[bytes, int]] = {}
+        self.res_lock = threading.Lock()
+        self.res_cv = threading.Condition(self.res_lock)
+        self.error: BaseException | None = None
+        # shared deque of block ids: device pops head, host pops tail
+        self.ids = list(range(len(blocks)))
+        self.head = 0
+        self.tail = len(blocks)
+        self.q_lock = threading.Lock()
+        self.entropy_q = _EdfQueue()
+        self.device_done = not use_device
+        self.host_workers = host_workers
+        self.use_device = use_device
+        self.claimed: set[int] = set()  # device-claimed, undelivered
+        self.abandoned = False
+        self.complete = False  # every block delivered; engines may bail
+        self.next_deliver = 0  # results below this are stale duplicates
+        self.last_batch_t = 0.0  # monotonic t of last device completion
+        self.lat_ema = 0.0     # claim->deliver latency estimate (s)
+        self.fetch_q: queue.Queue = queue.Queue()
+        self.fetch_pending = 0  # dispatched batches not yet fetched
+        self.stats = {"device_blocks": 0, "host_blocks": 0,
+                      "periodic_blocks": 0, "stale_rows": 0,
+                      "host_idle_s": 0.0, "device_batches": [],
+                      "batch_trace": [], "t0": time.time()}
         self.device = device
-        self.chain = _ref._DEVICE_CHAIN
+        self.chain = _DEVICE_CHAIN
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
         self._engines: list[threading.Thread] = []   # device + host threads
-        self._fetchers: list[threading.Thread] = []  # the device's fetchers
+        self._fetcher: threading.Thread | None = None  # the device's
 
-    def run(self):
-        """The inherited ``run``, then a bounded join of every thread the
-        pool started (device, host and fetch threads), so that no
-        ``lbz2-`` thread of this pool outlives the ``compress`` call: a
-        process that exits at once must not tear down the interpreter
-        under a thread inside torch.  The one exception is a pool the
-        watchdog abandoned: its device engine is wedged by definition,
-        and its daemon threads are left to finish or die with the
-        process, as in the JAX engine."""
-        try:
-            yield from super().run()
-        finally:
-            if not self.abandoned:
-                self._join_threads()
+    # --- queue primitives -------------------------------------------------
+    def take_head(self, k: int) -> list[int]:
+        """Device claim: full batches while the queue is deep, batches
+        of 8 near the end, at most half the remainder — so host
+        tail-stealing always keeps its share of a short queue.
 
-    def _join_threads(self):
-        # The inherited run() starts the engine threads before its first
-        # result, but each registers itself only once it runs; the device
-        # thread registers its fetchers before starting them, so once it
-        # is joined the fetcher list is whole.
-        deadline = time.time() + _JOIN_S
-        expected = int(self.use_device) + self.host_workers
-        while len(self._engines) < expected and time.time() < deadline:
-            time.sleep(0.001)
-        for threads in (self._engines, self._fetchers):
-            for t in list(threads):
-                t.join(timeout=max(0.0, deadline - time.time()))
+        Drain guard: once live rates are known, don't claim blocks the
+        host pool would finish faster than one device batch round
+        trip: otherwise the end of every stream runs at device batch
+        latency."""
+        with self.q_lock:
+            if self.abandoned:  # watchdog fired: stop claiming
+                return []
+            remaining = self.tail - self.head
+            el = time.time() - self.stats["t0"]
+            hb = self.stats["host_blocks"]
+            db = self.stats["device_batches"]
+            if hb and len(db) >= 2 and el > 0:
+                host_bps = hb / el                       # blocks/s
+                # latency = observed claim->deliver time (ready_s EMA),
+                # NOT completion spacing: with several batches pipelined
+                # the cadence reads far shorter than the time a claim
+                # takes to come back, and a guard fed the cadence claims
+                # extra batches at the drain
+                lat = max(_DRAIN_LAT_FLOOR_S, self.lat_ema)
+                if remaining < k + host_bps * lat:
+                    return []
+            if not db and hb >= remaining:
+                # the unproven engine is being outpaced: the host has
+                # already encoded more blocks than remain — a short
+                # stream will end before the first batch lands, and
+                # every claim is steal-back work at the drain
+                return []
+            if remaining < 2 * k:
+                k = 8 if remaining >= 16 else max(1, remaining // 2)
+            got = self.ids[self.head:min(self.head + k, self.tail)]
+            self.head += len(got)
+            self.claimed.update(got)
+            return got
 
+    def take_tail(self) -> int | None:
+        with self.q_lock:
+            if self.tail <= self.head:
+                return None
+            self.tail -= 1
+            return self.ids[self.tail]
+
+    def take_claimed(self) -> int | None:
+        """Steal back a device-claimed block (cold start, wedged
+        engine, end-of-stream drain).  Takes the youngest claim: the
+        device completes oldest batches first, so the youngest is the
+        least likely to be seconds from delivery.  First result wins;
+        the loser's late duplicate is dropped by put_result."""
+        with self.q_lock:
+            queue_empty = self.tail <= self.head
+        if not queue_empty and self.last_batch_t and \
+                time.time() - self.last_batch_t < _STEALBACK_GRACE_S:
+            return None  # device is streaming AND there is tail work:
+            # don't duplicate.  With an empty tail the host has nothing
+            # else to do, so racing the device is a free win (first
+            # result wins; the loser's duplicate is dropped).
+        with self.q_lock:
+            if not self.claimed:
+                return None
+            i = max(self.claimed)
+            self.claimed.discard(i)
+            return i
+
+    def unclaim(self, i):
+        with self.q_lock:
+            self.claimed.discard(i)
+
+    def is_stale(self, i) -> bool:
+        """True once some engine already produced block i."""
+        with self.res_cv:
+            return i < self.next_deliver or i in self.results
+
+    def put_result(self, i, payload_crc):
+        with self.q_lock:  # claimed is mutated under q_lock only
+            self.claimed.discard(i)
+        with self.res_cv:
+            # first result wins; a slower engine's duplicate is dropped
+            if i >= self.next_deliver and i not in self.results:
+                self.results[i] = payload_crc
+            self.res_cv.notify_all()
+
+    def fail(self, exc):
+        with self.res_cv:
+            if self.error is None:
+                self.error = exc
+            self.res_cv.notify_all()
+
+    # --- device engine ----------------------------------------------------
     def device_loop(self):
-        self._engines.append(threading.current_thread())
-        super().device_loop()
-
-    def host_loop(self):
-        self._engines.append(threading.current_thread())
-        super().host_loop()
+        try:
+            self._device_pipeline()
+        except BaseException as e:  # noqa: BLE001
+            # after watchdog abandonment (or completion via steal-back)
+            # the stream is already whole; a late error from the wedged
+            # engine must not fail it
+            if not (self.abandoned or self.complete):
+                self.fail(e)
+        finally:
+            self.device_done = True
+            self.entropy_q.close()  # wake idle workers for shutdown
 
     def _on_stream(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None
                 else contextlib.nullcontext())
 
     def _device_pipeline(self):
-        """Claim, prep, upload and dispatch batches; fetch workers finish
-        them.  Depth 1 until the first batch completes or warm_device()
+        """Claim, prep, upload and dispatch batches; the fetch worker
+        finishes them in order.  Depth 1 until the first batch completes or warm_device()
         ran, then up to _INFLIGHT batches in flight."""
         _GATE.wait_idle()  # don't queue behind a previous pool's tail
-        nfetchers = self._NFETCH
-        for w in range(nfetchers):
-            t = threading.Thread(target=self._fetch_worker,
-                                 name=f"lbz2-fetch{w}", daemon=True)
-            self._fetchers.append(t)
-            t.start()
+        self._fetcher = threading.Thread(target=self._fetch_worker,
+                                         name="lbz2-fetch", daemon=True)
+        self._fetcher.start()
         try:
             while not (self.abandoned or self.complete):
                 if self.error is not None:
                     break
-                cap = _ref._INFLIGHT \
+                cap = _INFLIGHT \
                     if (self.stats["device_batches"] or _warmed) else 1
                 if self.fetch_pending >= cap:
                     time.sleep(0.005)
                     continue
-                ids = self.take_head(_ref._BATCH)
+                ids = self.take_head(_BATCH)
                 if not ids:
-                    break  # the drain below keeps the sentinels last
+                    break  # the drain below keeps the sentinel last
                 built = self._build_batch(ids)
                 if built is None:
                     continue
@@ -202,28 +421,26 @@ class _TorchPool(_ref._WorkPool):
                 with self.q_lock:
                     self.fetch_pending += 1
                 self.fetch_q.put((ids, spans, outs, tele, gen))
-            # drain: fetch workers finish in the background; stop early
-            # when the stream completes, the watchdog fires, or a fetch
-            # worker failed (its error is the pool's result)
+            # drain: the fetch worker finishes in the background; stop
+            # early when the stream completes, the watchdog fires, or the
+            # fetch worker failed (its error is the pool's result)
             while self.fetch_pending > 0 and self.error is None and \
                     not (self.abandoned or self.complete):
                 time.sleep(0.05)
         finally:
             if self.abandoned or self.error is not None:
                 self._drain_fetch_q()
-            for _ in range(nfetchers):
-                self.fetch_q.put(None)
+            self.fetch_q.put(None)
 
     def _drain_fetch_q(self):
         """Release the in-flight accounting of batches nobody will
-        fetch; stops at the first sentinel and re-queues it."""
+        fetch."""
         while True:
             try:
                 item = self.fetch_q.get_nowait()
             except queue.Empty:
                 return
-            if item is None:
-                self.fetch_q.put(None)
+            if item is None:  # the end of the queue
                 return
             _GATE.dec(item[-1])
             with self.q_lock:
@@ -335,6 +552,202 @@ class _TorchPool(_ref._WorkPool):
         self.stats["batch_trace"].append(tele)
 
 
+    def _build_batch(self, ids):
+        """Lyndon-prep ids into one padded (rows, bucket) batch;
+        periodic and mid-size blocks route to the host immediately.
+
+        The least rotation is written straight into the batch row
+        (lyndon_prep's out buffer): no second copy of each 0.9 MB
+        block."""
+        t0 = time.time()
+        eligible = []
+        bucket = _BUCKETS[0]
+        for i in ids:
+            span = self.blocks[i]
+            bucket_i = _bucket_for(span.data.size)
+            if bucket_i is None:
+                self.unclaim(i)
+                self.entropy_q.put((i, span, None, -1))  # host BWT
+                continue
+            eligible.append((i, span))
+            bucket = max(bucket, bucket_i)
+        if not eligible:
+            return None
+        # one row count per bucket: the production bucket always ships
+        # full-width batches (short end-of-stream claims ride as pad
+        # rows); only the tiny CPU-test bucket keeps a cheap 8-row shape
+        nrows = 8 if (len(eligible) <= 8 and bucket == _BUCKETS[0]) \
+            else _BATCH
+        batch = np.zeros((nrows, bucket), np.uint8)
+        ns = np.empty(nrows, np.int32)
+        ms = np.empty(nrows, np.int32)
+        kept = []
+        row = 0
+        for i, span in eligible:
+            n = span.data.size
+            _, m = native.lyndon_prep(span.data, out=batch[row, :n])
+            if m < 0:  # fully periodic: host convention, reuse the row
+                batch[row, :n] = 0
+                self.unclaim(i)
+                self.entropy_q.put((i, span, None, -1))
+                continue
+            ns[row] = n
+            ms[row] = m
+            kept.append((i, span))
+            row += 1
+        if not kept:
+            return None
+        for r in range(row, nrows):
+            # pad rows replay row 0 (resolve identically)
+            batch[r] = batch[0]
+            ns[r] = ns[0]
+            ms[r] = ms[0]
+        tele = {"rows": len(kept), "shape": [nrows, bucket],
+                "prep_s": round(time.time() - t0, 3),
+                "t": round(time.time() - self.stats["t0"], 2)}
+        return ([i for i, _ in kept], [span for _, span in kept],
+                batch, ns, ms, tele)
+
+    # --- host workers -----------------------------------------------------
+    def _next_task(self):
+        """Ordered scheduling policy: highest-priority available task,
+        or None when the pool is finished.
+
+        Static priority between task types (the reference's ordered
+        task table, src/process.c:422-435 over compress.c:353-359),
+        EDF within a type:
+          1. entropy    — finish a device-BWT'd block (smallest id
+                          first: feeds the in-order consumer and drains
+                          device inventory)
+          2. steal      — whole block from the tail of the shared queue
+          3. steal_back — device-claimed block, gated by take_claimed's
+                          streaming-grace (cold start / outage only)
+        Blocks (with a 1 s re-poll so the gates above are re-evaluated)
+        when nothing is ready but work may still appear."""
+        while True:
+            item = self.entropy_q.get(block=False)
+            if item is not None:
+                return ("entropy", item)
+            if _HOST_STEAL:
+                i = self.take_tail()
+                if i is not None:
+                    return ("steal", i)
+                if _STEALBACK and not self.device_done:
+                    i = self.take_claimed()
+                    if i is not None:
+                        return ("steal_back", i)
+            if self.device_done and self.entropy_q.empty():
+                return None
+            t = time.time()
+            item = self.entropy_q.get(block=True, timeout=1.0)
+            self.stats["host_idle_s"] += time.time() - t
+            if item is not None:
+                return ("entropy", item)
+
+    def host_loop(self):
+        try:
+            while True:
+                task = self._next_task()
+                if task is None:
+                    return
+                kind, item = task
+                if kind == "entropy":
+                    self._do_entropy(item)
+                else:  # steal / steal_back: whole-block host encode
+                    self.stats["host_blocks"] += 1
+                    self.put_result(item, _host_block(
+                        self.buf, self.blocks[item], self.cf))
+        except BaseException as e:  # noqa: BLE001
+            self.fail(e)
+
+    def _do_entropy(self, item):
+        i, span, bwt_row, bidx = item
+        if self.is_stale(i):  # another engine already produced it
+            return
+        if bwt_row is None:  # periodic block: full host encode
+            self.put_result(i, _host_block(self.buf, span, self.cf))
+        else:
+            self.put_result(i, _entropy_payload(
+                self.buf, span, bwt_row, bidx, self.cf))
+
+    # --- delivery loop ----------------------------------------------------
+    def run(self):
+        """Start the engines and yield (payload, stored CRC) in block
+        order; then a bounded join of every thread the pool started
+        (device, host and fetch threads), so that no ``lbz2-`` thread of
+        this pool outlives the ``compress`` call: a process that exits
+        at once must not tear down the interpreter under a thread
+        inside torch.  The one exception is a pool the watchdog
+        abandoned: its device engine is wedged by definition, and its
+        daemon threads are left to finish or die with the process."""
+        if self.use_device:
+            self._engines.append(threading.Thread(
+                target=self.device_loop, name="lbz2-device", daemon=True))
+        for w in range(self.host_workers):
+            self._engines.append(threading.Thread(
+                target=self.host_loop, name=f"lbz2-host{w}", daemon=True))
+        for t in self._engines:
+            t.start()
+        # Watchdog: if the device engine stops delivering while blocks
+        # it claimed are outstanding, requeue them as host work so the
+        # stream always completes (the stuck engine's late duplicates,
+        # if any, are discarded at pop time).
+        stall_s = float(os.environ.get("LBZ2_DEVICE_STALL_S", "300"))
+        delivered = 0
+        waited = 0.0
+        seen = 0  # results observed at last stall check
+        try:
+            for i in range(len(self.blocks)):
+                with self.res_cv:
+                    while i not in self.results and self.error is None:
+                        self.res_cv.wait(timeout=5.0)
+                        if i in self.results or self.error is not None:
+                            break
+                        progress = delivered + len(self.results)
+                        if progress != seen:  # stream alive: reset clock
+                            seen = progress
+                            waited = 0.0
+                            continue
+                        waited += 5.0
+                        if waited >= stall_s and not self.abandoned and \
+                                self.claimed:
+                            # order matters for liveness: stop new claims
+                            # (abandoned), requeue the stuck work, and
+                            # only then set device_done: a worker
+                            # observing (device_done and empty queue)
+                            # between these steps would exit with work
+                            # still pending
+                            self.abandoned = True
+                            with self.q_lock:  # take_head mutates claimed
+                                stuck = sorted(self.claimed)
+                            for j in stuck:
+                                self.entropy_q.put(
+                                    (j, self.blocks[j], None, -1))
+                            self.device_done = True
+                    if self.error is not None:
+                        raise self.error
+                delivered += 1
+                with self.res_cv:
+                    self.next_deliver = i + 1
+                    payload = self.results.pop(i)
+                yield payload
+            self.complete = True
+        finally:
+            if not self.abandoned:
+                self._join_threads()
+        if self.error is not None:
+            raise self.error
+
+    def _join_threads(self):
+        # the device thread sets its fetcher before starting it, so once
+        # the engines are joined the fetcher is known
+        deadline = time.time() + _JOIN_S
+        for t in self._engines:
+            t.join(timeout=max(0.0, deadline - time.time()))
+        if self._fetcher is not None:
+            self._fetcher.join(timeout=max(0.0, deadline - time.time()))
+
+
 def lyndon_rows(blocks: list[np.ndarray], width: int):
     """Lyndon-prep byte blocks into one (len(blocks), width) batch, as
     the pool's ``_build_batch`` does.  Returns (batch, ns, ms); ms is -1
@@ -358,15 +771,15 @@ def device_eligible(data: bytes | np.ndarray, level: int = 9,
     n = 0
     for _, _, blk, _ in native.rle1_collect(
             buf, mbs, None if sequential_split else mbs):
-        if _ref._bucket_for(blk.size) is not None and \
+        if _bucket_for(blk.size) is not None and \
                 native.lyndon_prep(blk)[1] >= 0:
             n += 1
     return n
 
 
-def warm_device(rows=(_ref._BATCH,), bucket: int = _ref._BUCKETS[-1],
+def warm_device(rows=(_BATCH,), bucket: int = _BUCKETS[-1],
                 device: str | torch.device = "cuda") -> float:
-    """Run the device engine of the mode in force (``_ref._DEVICE_CHAIN``)
+    """Run the device engine of the mode in force (``_DEVICE_CHAIN``)
     once per (rows, bucket) shape on tiny Lyndon rows: the whole chain
     (building the CUDA kernel), or the token BWT and its copies to
     pinned memory.  Warms the allocator and the math libraries outside a
@@ -380,7 +793,7 @@ def warm_device(rows=(_ref._BATCH,), bucket: int = _ref._BUCKETS[-1],
         ns = np.full(r, 4, np.int32)
         ms = np.zeros(r, np.int32)
         args = (upload(batch, dev), upload(ns, dev), upload(ms, dev))
-        if not _ref._DEVICE_CHAIN:
+        if not _DEVICE_CHAIN:
             tokens, _, counts, primary = bwt2_tokens(*args)
             for t in (tokens, counts, primary):
                 to_host(t)
@@ -407,14 +820,14 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
                            ) -> tuple[list[bytes], list[int]]:
     """Encode all blocks with the hybrid pool on ``device``; returns
     (payloads, stored block CRCs) in block order.  The host C kernels
-    (``lbzip2_tpu.native``) are required: the device engine runs
+    (``lbzip2_tpu_torch.native``) are required: the device engine runs
     ``lyndon_prep``, and ``chain_finish`` or the token entropy coder."""
     global last_stats
     if not 1 <= level <= 9:
         raise ValueError(f"level must be 1..9, got {level}")
     dev = resolve(device)
     if not native.native_available():
-        raise RuntimeError("lbzip2_tpu.native is not available: the "
+        raise RuntimeError("lbzip2_tpu_torch.native is not available: the "
                            "device engine needs its host C kernels")
     buf = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(
         data, (bytes, bytearray)) else np.ascontiguousarray(
@@ -427,7 +840,7 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
     if entropy_workers is None:
         entropy_workers = max(2, os.cpu_count() or 2)
     if use_device is None:
-        use_device = _ref._DEVICE
+        use_device = _DEVICE
     pool = _TorchPool(buf, blocks, cluster_factor, entropy_workers,
                       use_device, dev)
     last_stats = pool.stats

@@ -15,12 +15,14 @@ import time
 import numpy as np
 import torch
 
-from lbzip2_tpu import native
-from lbzip2_tpu.core.constants import GROUP_SIZE, MAX_ALPHA_SIZE, MAX_TREES
-from lbzip2_tpu.ref.huffman import generate_initial_trees, num_trees_for
+from lbzip2_tpu_torch import native
+from lbzip2_tpu_torch.core.constants import (GROUP_SIZE, MAX_ALPHA_SIZE,
+                                             MAX_TREES)
 from lbzip2_tpu_torch.device import upload
 from lbzip2_tpu_torch.interop import M32
 from lbzip2_tpu_torch.ops.huffenc import _em_chain
+from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
+                                          num_trees_for)
 from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
 from lbzip2_tpu_torch.ops.rle2 import _rle2_batch
 

@@ -20,9 +20,8 @@ import ctypes
 import numpy as np
 import torch
 
-from lbzip2_tpu import native
-from lbzip2_tpu.core.constants import Error
-from lbzip2_tpu_torch import _build
+from lbzip2_tpu_torch import _build, native
+from lbzip2_tpu_torch.core.constants import Error
 from lbzip2_tpu_torch.device import to_host, upload
 from lbzip2_tpu_torch.interop import M32
 

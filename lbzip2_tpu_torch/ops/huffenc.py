@@ -7,17 +7,22 @@ leaves and the j-th merge carrying the tag of the j-th smallest leaf;
 lengths come from the two-queue merge preferring leaves on ties and are
 re-assigned by rank profile.
 
-The merge is sequential over <= 257 steps of O(1) work, vectorised
-across the B * 6 rows of a batch.  Eager PyTorch launches a few dozen
-small ops per step; that launch cost is accepted in this port and
-recorded in PERF.md.
+``make_code_lengths_rows`` runs the hand-written kernel
+``csrc/code_lengths.cu`` (one CTA per row, everything in shared memory)
+for a CUDA tensor, and the plain PyTorch version for a CPU tensor.  The
+plain version is the JAX op step for step: a merge of 257 masked steps
+vectorised across the B * 6 rows of a batch, a few dozen small ops a
+step, which is why it is not the card's path.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from lbzip2_tpu.core.constants import MAX_ALPHA_SIZE, MAX_TREES
+from lbzip2_tpu_torch import _build
+from lbzip2_tpu_torch.core.constants import MAX_ALPHA_SIZE, MAX_TREES
 
 MAX_ALPHA = 258
 W = MAX_ALPHA_SIZE + 1          # 259 lanes (symbols 0..257 + dummy)
@@ -26,6 +31,8 @@ _NMERGE = _NLEAF - 1
 _NN = _NLEAF + _NMERGE          # node slots: sorted leaves, then merges
 _HLIM = 30                      # MAX_HUFF_LEN2 profile clamp
 _INF32 = 0x7FFFFFFF
+
+launches = 0  # CUDA kernel launches made by make_code_lengths_rows
 
 
 def _lt(fa, ta, fb, tb):
@@ -118,6 +125,57 @@ def _make_code_lengths_rows(freqs: torch.Tensor,
     return out
 
 
+def _lib():
+    fn = _build.load("code_lengths").lbz2t_code_lengths
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def make_code_lengths_cuda(freqs: torch.Tensor,
+                           as_arr: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no synchronize)."""
+    global launches
+    dev = freqs.device
+    if dev.type != "cuda" or as_arr.device != dev:
+        raise ValueError("make_code_lengths_cuda needs both inputs on one "
+                         "CUDA device")
+    if any(a.dtype != torch.int32 or not a.is_contiguous()
+           for a in (freqs, as_arr)):
+        raise TypeError("make_code_lengths_cuda inputs must be contiguous "
+                        "int32")
+    R = freqs.shape[0]
+    if freqs.shape != (R, W) or as_arr.shape != (R,):
+        raise ValueError("bad make_code_lengths shapes")
+    out = torch.empty((R, W), dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    err = _lib()(freqs.data_ptr(), as_arr.data_ptr(), out.data_ptr(), R,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"code_lengths kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def make_code_lengths_rows(freqs: torch.Tensor,
+                           as_arr: torch.Tensor) -> torch.Tensor:
+    """Huffman code lengths of R trees: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.
+
+    freqs (R, W) int32 symbol counts (< 2^22; 0 counts as 1), as_arr
+    (R,) int32 alphabet sizes in 0..258 -> lengths (R, W) int32, at most
+    30, symbols >= as zero."""
+    if freqs.device.type == "cuda":
+        return make_code_lengths_cuda(freqs, as_arr)
+    if freqs.device.type == "cpu":
+        return _make_code_lengths_rows(freqs, as_arr)
+    raise ValueError(f"unsupported device {freqs.device}")
+
+
 def _em_chain(hist_g: torch.Tensor, ngroups: torch.Tensor,
               nt: torch.Tensor, as_arr: torch.Tensor,
               lengths0: torch.Tensor, cluster_factor: int):
@@ -133,7 +191,7 @@ def _em_chain(hist_g: torch.Tensor, ngroups: torch.Tensor,
 
     B = hist_g.shape[0]
     R = B * MAX_TREES
-    as_rows = as_arr.repeat_interleave(MAX_TREES)
+    as_rows = as_arr.repeat_interleave(MAX_TREES, output_size=R)
     tree_live = (torch.arange(MAX_TREES, device=hist_g.device)[None, :] <
                  nt[:, None])[:, :, None]
     lengths = lengths0
@@ -145,7 +203,8 @@ def _em_chain(hist_g: torch.Tensor, ngroups: torch.Tensor,
         it += 1
         if conv or it >= cluster_factor:
             break
-        new = _make_code_lengths_rows(freqs.reshape(R, W), as_rows)
+        new = make_code_lengths_rows(freqs.reshape(R, W).contiguous(),
+                                     as_rows)
         lengths = torch.where(tree_live, new.reshape(B, MAX_TREES, W),
                               lengths)
         prev_sel = sel

@@ -1,9 +1,16 @@
 """Speculative parallel decompression with the port's device stages.
 
-Counterpart of the device parts of lbzip2_tpu/parallel/decode.py.  The
-parser walk, the candidate scan, the slot pool and the in-order drain
-are the JAX module's jax-free host code, reused as they are; this
-module routes the two opt-in device stages to the port:
+Counterpart of lbzip2_tpu/parallel/decode.py.  bzip2 streams carry no
+block index, so decode parallelism must be discovered: a bit scanner
+finds every offset where the 48-bit block magic appears, speculative
+workers decode each candidate concurrently, and the sequential parser
+walks the stream confirming candidates and stitching results in order.
+A false-positive candidate merely wastes a worker; a missing one falls
+back to synchronous decode, so the result always equals sequential
+decoding.  ``decompress_parallel`` works on a whole stream in memory,
+``decompress_stream`` on a sliding window with bounded memory.
+
+Two opt-in device stages, in both entry points:
 
   LBZ2_DEVICE_HUFF=1    Huffman stage: host boundary walk, group decode
                         on the device (ops/huffdec.py, csrc/huffdec.cu),
@@ -16,7 +23,7 @@ module routes the two opt-in device stages to the port:
 Both are off by default, as in the JAX package.  A switched-off stage
 takes the host C path.  With a switch on, ``device="cuda"`` without
 CUDA raises; an error raised by a kernel or its launch propagates out
-of ``decompress_parallel`` and never becomes a stream-error verdict.
+of the entry point and never becomes a stream-error verdict.
 """
 
 from __future__ import annotations
@@ -28,17 +35,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from lbzip2_tpu import native
-from lbzip2_tpu.core import crc32
-from lbzip2_tpu.core.bits import read_bits_at as _read_bits
-from lbzip2_tpu.core.constants import Error, StreamError
-from lbzip2_tpu.parallel.decode import (BLOCK_MAGIC, EOS_MAGIC, SlotPool,
-                                        _cancel_candidate, _emit_result,
-                                        _ERR_BY_VALUE, _finish_in_order,
-                                        scan_magic_bits)
+from lbzip2_tpu_torch import native
+from lbzip2_tpu_torch.core import crc32
+from lbzip2_tpu_torch.core.bits import read_bits_at as _read_bits
+from lbzip2_tpu_torch.core.constants import Error, StreamError
 from lbzip2_tpu_torch.device import resolve, to_host, upload
 from lbzip2_tpu_torch.ops.huffdec import decode_block_device
 from lbzip2_tpu_torch.ops.ibwt import ibwt_rows
+from lbzip2_tpu_torch.ref.rle1 import rle1_decode
+
+BLOCK_MAGIC = 0x314159265359
+EOS_MAGIC = 0x177245385090
 
 # the JAX package's switches and defaults (parallel/decode.py:224, :231)
 DEVICE_IBWT = os.environ.get("LBZ2_DEVICE_DECODE", "0") == "1"
@@ -46,6 +53,84 @@ DEVICE_HUFF = os.environ.get("LBZ2_DEVICE_HUFF", "0") == "1"
 _IBWT_N = 901120  # padded device row (covers MAX_BLOCK_SIZE)
 
 last_stats: dict | None = None  # device use of the last decompress call
+
+
+def scan_magic_bits(data: np.ndarray, magic: int = BLOCK_MAGIC
+                    ) -> np.ndarray:
+    """All bit offsets where the 48-bit magic occurs.
+
+    Production path: the C shift-register scan (native lbz2_scan_magic,
+    O(1) extra memory).  Fallback: a vectorized numpy scan
+    over 8 shifted views — for each bit phase s, compare the 6-byte
+    windows of (data << s) against the magic bytes.
+    """
+    n = data.size
+    if n < 6:
+        return np.zeros(0, np.int64)
+    if native.native_available():
+        return native.scan_magic(data, magic)
+    hits = []
+    d = data.astype(np.uint16)
+    for s in range(8):
+        if s == 0:
+            shifted = data
+            m = n
+        else:
+            # byte i of (bitstream << s): (d[i] << s | d[i+1] >> (8-s))
+            shifted = (((d[:-1] << s) | (d[1:] >> (8 - s))) & 0xFF
+                       ).astype(np.uint8)
+            m = n - 1
+        if m < 6:
+            continue
+        mb = [(magic >> (40 - 8 * k)) & 0xFF for k in range(6)]
+        ok = shifted[:m - 5] == mb[0]
+        for k in range(1, 6):
+            ok &= shifted[k:m - 5 + k] == mb[k]
+        pos = np.flatnonzero(ok).astype(np.int64) * 8 + s
+        hits.append(pos)
+    out = np.concatenate(hits)
+    out.sort()
+    return out
+
+
+OUT_GRANUL = 900000
+EMIT_THRESH = 2  # speculative emit keeps this many slots free
+
+
+class SlotPool:
+    """Bounded output-buffer accounting with next-in-order reservation.
+
+    The reference's anti-deadlock memory policy (src/expand.c:31-52):
+    speculative emitters may only take a slot while more than
+    EMIT_THRESH remain, so the in-order (authoritative) consumer always
+    finds a free slot and the pipeline cannot wedge no matter how many
+    speculative blocks are suspended mid-emit."""
+
+    def __init__(self, slots: int):
+        self.free = slots
+        self.total = slots
+        self.peak = 0
+        self._cv = threading.Condition()
+
+    def try_acquire(self, in_order: bool = False) -> bool:
+        with self._cv:
+            ok = self.free > EMIT_THRESH or (in_order and self.free > 0)
+            if ok:
+                self.free -= 1
+                self.peak = max(self.peak, self.total - self.free)
+            return ok
+
+    def acquire_in_order(self) -> None:
+        with self._cv:
+            while self.free <= 0:
+                self._cv.wait()
+            self.free -= 1
+            self.peak = max(self.peak, self.total - self.free)
+
+    def release(self, k: int = 1) -> None:
+        with self._cv:
+            self.free += k
+            self._cv.notify_all()
 
 
 class _Request:
@@ -174,16 +259,108 @@ def block_payloads(data: bytes) -> list[int]:
     return out
 
 
+def _emit_result(bwt, idx, rnd, newpos,
+                 pool: SlotPool | None = None,
+                 batcher: "_DeviceIbwtBatcher | None" = None):
+    """IBWT + RLE1-expand a retrieved block into result chunks
+    (slot-pooled when a SlotPool bounds memory)."""
+    if batcher is not None and not rnd:
+        # device IBWT (batched Wyllie list ranking), host RLE1+CRC
+        if not (0 <= idx < bwt.size):
+            return {"err": Error.ERR_RUNLEN.value}
+        rle_domain = batcher.run(bwt, int(idx))
+        plain, ok = rle1_decode(rle_domain)
+        if not ok:
+            return {"err": Error.ERR_RUNLEN.value}
+        crc = (native.crc32_block(plain) ^ 0xFFFFFFFF) & 0xFFFFFFFF
+        return {"err": 0, "end": newpos, "chunks": [plain.tobytes()],
+                "cursor": None, "crc": crc, "size": int(bwt.size),
+                "pooled": False}
+    if pool is None:
+        try:
+            plain, crcreg = native.ibwt_emit(bwt, idx, rnd)
+        except ValueError:
+            return {"err": Error.ERR_RUNLEN.value}
+        return {"err": 0, "end": newpos, "chunks": [plain.tobytes()],
+                "cursor": None,
+                "crc": (crcreg ^ 0xFFFFFFFF) & 0xFFFFFFFF,
+                "size": int(bwt.size), "pooled": False}
+    try:
+        cur = native.EmitCursor(bwt, idx, rnd)
+    except ValueError:
+        return {"err": Error.ERR_RUNLEN.value}
+    chunks: list[bytes] = []
+    while not cur.done:
+        if not pool.try_acquire():
+            return {"err": 0, "end": newpos, "chunks": chunks,
+                    "cursor": cur, "size": int(bwt.size),
+                    "pooled": True}
+        try:
+            chunks.append(cur.next_chunk(OUT_GRANUL))
+        except ValueError:
+            pool.release(len(chunks) + 1)
+            return {"err": Error.ERR_RUNLEN.value}
+    return {"err": 0, "end": newpos, "chunks": chunks, "cursor": None,
+            "crc": cur.crc, "size": int(bwt.size), "pooled": True}
+
+
+def _finish_in_order(res: dict, pool: SlotPool | None, sink) -> None:
+    """Drain a confirmed block's chunks (and cursor tail) into sink,
+    releasing slots as they are consumed."""
+    pooled = res.get("pooled", False)
+    for c in res["chunks"]:
+        sink(c)
+        if pool is not None and pooled:
+            pool.release()
+    res["chunks"] = []
+    cur = res.get("cursor")
+    if cur is not None:
+        try:
+            while not cur.done:
+                if pool is not None:
+                    pool.acquire_in_order()
+                c = cur.next_chunk(OUT_GRANUL)
+                sink(c)
+                if pool is not None:
+                    pool.release()
+        except ValueError:
+            raise StreamError(Error.ERR_RUNLEN)
+        res["crc"] = cur.crc
+        res["cursor"] = None
+
+
+def _cancel_candidate(res_or_fut, pool: SlotPool | None) -> None:
+    """Release every slot a stale speculative result still holds."""
+    if pool is None:
+        return
+    try:
+        res = res_or_fut.result() if hasattr(res_or_fut, "result") \
+            else res_or_fut
+    except Exception:  # noqa: BLE001 — dead speculative job holds nothing
+        return
+    if res and res.get("err") == 0 and res.get("pooled", False):
+        pool.release(len(res["chunks"]))
+        res["chunks"] = []
+
+
+_ERR_BY_VALUE = {e.value: e for e in Error}
+
+
 def decompress_parallel(data: bytes, n_workers: int | None = None,
                         out_slots: int | None = None,
                         device_ibwt: bool | None = None,
                         device: str | torch.device = "cuda") -> bytes:
     """Parallel decode, semantics identical to the sequential decoder
-    and to lbzip2_tpu.parallel.decode.decompress_parallel, whose parser
-    walk (:285-380) this is; the device stages run on ``device``."""
+    and to lbzip2_tpu.parallel.decode.decompress_parallel (:285-380);
+    the device stages run on ``device``.
+
+    Speculative emission is bounded by a SlotPool of out_slots
+    OUT_GRANUL buffers (default 16 per worker) with the next-in-order
+    reservation, so a zip-bomb block cannot blow up resident memory
+    beyond the pool no matter how many candidates decode it early."""
     global last_stats
     if native.get_lib() is None:
-        from lbzip2_tpu.ref.decoder import decompress as ref_dec
+        from lbzip2_tpu_torch.ref.decoder import decompress as ref_dec
         return ref_dec(data)
     buf = bytes(data)
     if len(buf) < 4 or buf[0:3] != b"BZh" or not (0x31 <= buf[3] <= 0x39):
@@ -276,3 +453,251 @@ def decompress_parallel(data: bytes, n_workers: int | None = None,
         stats["ibwt_rows"] = batcher.rows
         stats["ibwt_flushes"] = batcher.flushes
     return b"".join(out_parts)
+
+
+class _StreamBuf:
+    """Sliding input window with absolute bit addressing."""
+
+    def __init__(self, read_chunk, chunk_size: int):
+        self.read_chunk = read_chunk
+        self.chunk_size = chunk_size
+        self.base = 0  # absolute byte offset of buf[0]
+        self.buf = b""
+        self.eof = False
+        self._lock = threading.Lock()
+
+    def extend(self) -> bool:
+        # Serialized: speculative workers and the parser both extend.
+        with self._lock:
+            if self.eof:
+                return False
+            chunk = self.read_chunk(self.chunk_size)
+            if not chunk:
+                self.eof = True
+                return False
+            self.buf += chunk
+            return True
+
+    def ensure_bits(self, abs_bit: int, nbits: int) -> bool:
+        """True if [abs_bit, abs_bit+nbits) is in the buffer (extending
+        as needed)."""
+        while (self.base + len(self.buf)) * 8 < abs_bit + nbits:
+            if not self.extend():
+                return False
+        return True
+
+    def drop_before(self, abs_bit: int) -> None:
+        with self._lock:
+            keep_from = abs_bit // 8 - self.base
+            if keep_from > self.chunk_size:
+                self.buf = self.buf[keep_from:]
+                self.base += keep_from
+
+    def arr(self) -> np.ndarray:
+        return np.frombuffer(self.buf, np.uint8)
+
+    def snapshot(self) -> tuple[np.ndarray, int]:
+        """Atomic (buffer view, base) pair for concurrent decoders."""
+        with self._lock:
+            return np.frombuffer(self.buf, np.uint8), self.base
+
+    def read_bits(self, abs_bit: int, k: int) -> int:
+        if not self.ensure_bits(abs_bit, k):
+            raise EOFError
+        return _read_bits(self.arr(), abs_bit - self.base * 8, k)
+
+
+def decompress_stream(read_chunk, write, n_workers: int | None = None,
+                      chunk_size: int = 4 << 20,
+                      out_slots: int | None = None,
+                      _pool_out: list | None = None,
+                      verbose: bool = False, in_size: int | None = None,
+                      progress_name: str = "",
+                      device: str | torch.device = "cuda"
+                      ) -> tuple[int, int]:
+    """Streaming decode with bounded input AND output memory.
+
+    read_chunk(n) -> bytes supplies input; write(bytes) consumes output.
+    Returns (bytes_in, bytes_out).  Semantics identical to
+    decompress_parallel; blocks whose payload crosses the current window
+    are retried after extending it (the resumable-coroutine analogue).
+    Output-side memory is bounded by a SlotPool (16 slots/worker, last
+    one reserved for the in-order block) — a 26-byte zip bomb expanding
+    to 47 MB streams through the fixed pool instead of materializing.
+    With DEVICE_HUFF / DEVICE_IBWT on, every block (speculative or
+    parser-confirmed) takes those stages on ``device``.
+    """
+    global last_stats
+    if n_workers is None:
+        n_workers = min(32, os.cpu_count() or 1)
+    spool = SlotPool(out_slots or 16 * n_workers)
+    dev = resolve(device) if (DEVICE_HUFF or DEVICE_IBWT) else None
+    batcher = _DeviceIbwtBatcher(device=dev) if DEVICE_IBWT else None
+    stats = {"blocks": 0, "device_huff": DEVICE_HUFF,
+             "ibwt_rows": 0, "ibwt_flushes": 0}
+    last_stats = stats
+    if _pool_out is not None:
+        _pool_out.append(spool)  # test hook: expose peak accounting
+    sb = _StreamBuf(read_chunk, chunk_size)
+    if not sb.ensure_bits(0, 32):
+        raise StreamError(Error.ERR_MAGIC)
+    hdr = sb.read_bits(0, 32)
+    if (hdr >> 8) != 0x425A68 or not (0x31 <= (hdr & 0xFF) <= 0x39):
+        raise StreamError(Error.ERR_MAGIC)
+    level = (hdr & 0xFF) - 0x30
+    pos = 32
+    combined = 0
+    total_out = 0
+
+    # %/ETA over consumed input, once per second on a tty — the
+    # reference's sink-side progress covers both directions
+    # (src/process.c:392-411); rate is input-byte based there too.
+    import sys as _sys
+    import time as _time
+    _t0 = _time.time()
+    _last_prog = [0.0]
+
+    def _progress(done_bits: int):
+        if not (verbose and in_size and _sys.stderr.isatty()):
+            return
+        now = _time.time()
+        if now - _last_prog[0] < 1.0:
+            return
+        _last_prog[0] = now
+        done = min(done_bits // 8, in_size)
+        pct = 100.0 * done / in_size
+        elapsed = now - _t0
+        eta = elapsed * (in_size - done) / max(1, done)
+        _sys.stderr.write(f"\r{progress_name}: {pct:5.1f}% done, "
+                          f"ETA {eta:6.1f}s")
+        _sys.stderr.flush()
+
+    def decode_at(p: int, speculative: bool = False):
+        """Decode the block whose magic is at absolute bit p.
+
+        The parser-confirmed call drives the C resumable retriever
+        (native lbz2_retr_step, the reference's suspend-anywhere
+        retrieve contract, src/decode.c:387-407): it consumes exactly
+        the bits available and returns MORE when the window runs dry,
+        so arbitrarily small input chunks stream through with no
+        worst-case pre-buffering.  Speculative candidates decode only
+        within the current snapshot (a false positive must not drag
+        the file in) and report ERR_EOF, which the parser retries
+        non-speculatively."""
+        if not speculative and native.native_available() and \
+                not DEVICE_HUFF:
+            r = native.ResumableRetriever()
+            try:
+                while True:
+                    arr, base = sb.snapshot()
+                    err, end, size, idx, rnd = r.step(arr, base * 8,
+                                                      p + 80)
+                    if err == Error.MORE.value and sb.extend():
+                        continue
+                    break
+                if err == Error.MORE.value:  # exhausted at true EOF
+                    return {"err": Error.ERR_EOF.value}
+                if err != 0:
+                    return {"err": err}
+                return {**_emit_result(r.bwt[:size], idx, rnd, 0,
+                                       spool, batcher), "end": end}
+            finally:
+                r.close()
+        if not speculative:
+            payload_bound = (level * 100000 * 20) // 8 + 65536
+            sb.ensure_bits(p + 80, payload_bound * 8)  # stops at EOF
+        while True:
+            arr, base = sb.snapshot()
+            res = _decode_candidate(arr, arr.size * 8,
+                                    p + 80 - base * 8, spool, batcher,
+                                    dev)
+            if res["err"] == Error.ERR_EOF.value and not speculative \
+                    and sb.extend():
+                continue
+            if res.get("end") is not None:
+                res["end"] += base * 8
+            return res
+
+    with ThreadPoolExecutor(max_workers=n_workers) as pool:
+        pending: dict[int, object] = {}
+
+        def refresh_speculation():
+            # scan current window for candidates ahead of the parser
+            arr = sb.arr()
+            local = scan_magic_bits(arr)
+            for lp in local:
+                ap = int(lp) + sb.base * 8
+                if ap > pos and ap not in pending and len(pending) < \
+                        4 * n_workers:
+                    pending[ap] = pool.submit(decode_at, ap, True)
+
+        while True:
+            try:
+                magic = sb.read_bits(pos, 48)
+            except EOFError:
+                raise StreamError(Error.ERR_EOF)
+            if magic == BLOCK_MAGIC:
+                try:
+                    crc_stored = sb.read_bits(pos + 48, 32)
+                except EOFError:
+                    raise StreamError(Error.ERR_EOF)
+                refresh_speculation()
+                fut = pending.pop(pos, None)
+                res = fut.result() if fut is not None else None
+                if res is None or res["err"] == Error.ERR_EOF.value:
+                    # miss, or speculative decode ran out of window:
+                    # authoritative decode with window extension
+                    res = decode_at(pos)
+                if res["err"] != 0:
+                    raise StreamError(_ERR_BY_VALUE.get(
+                        res["err"], Error.ERR_HEADER))
+                if res["size"] > level * 100000:
+                    raise StreamError(Error.ERR_OVERFLOW)
+                nw = [0]
+
+                def sink(c, nw=nw):
+                    write(c)
+                    nw[0] += len(c)
+                _finish_in_order(res, spool, sink)
+                if res["crc"] != crc_stored:
+                    raise StreamError(Error.ERR_BLKCRC)
+                total_out += nw[0]
+                stats["blocks"] += 1
+                combined = crc32.combine_crc(combined, crc_stored)
+                pos = res["end"]
+                _progress(pos)
+                # discard superseded/false-positive candidates, then
+                # drop consumed input behind the earliest live future.
+                # The candidate AT pos is the next block's and stays
+                # (the JAX loop drops it too, with `<=`, so there every
+                # block is decoded a second time by the parser).
+                for stale in [p for p in pending if p < pos]:
+                    _cancel_candidate(pending.pop(stale), spool)
+                horizon = min(pending, default=pos)
+                sb.drop_before(min(pos, horizon))
+                continue
+            if magic == EOS_MAGIC:
+                try:
+                    stored = sb.read_bits(pos + 48, 32)
+                except EOFError:
+                    raise StreamError(Error.ERR_EOF)
+                pos += 80
+                if stored != combined:
+                    raise StreamError(Error.ERR_STRMCRC)
+                pos += (-pos) % 8
+                if sb.ensure_bits(pos, 32):
+                    hdr = sb.read_bits(pos, 32)
+                    if (hdr >> 8) == 0x425A68 and \
+                            0x31 <= (hdr & 0xFF) <= 0x39:
+                        pos += 32
+                        level = (hdr & 0xFF) - 0x30
+                        combined = 0
+                        continue
+                break
+            raise StreamError(Error.ERR_HEADER)
+
+    if batcher is not None:
+        stats["ibwt_rows"] = batcher.rows
+        stats["ibwt_flushes"] = batcher.flushes
+    total_in = sb.base + len(sb.buf)
+    return total_in, total_out

@@ -11,6 +11,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from lbzip2_tpu import native
 from lbzip2_tpu.core.constants import MAX_TREES
@@ -152,33 +153,87 @@ def test_em_estep_hist(maxlen):
         _eq(g, w)
 
 
-@pytest.mark.parametrize("trial", range(4))
+def _fib(limit):
+    fib = [1, 1]
+    while fib[-1] + fib[-2] < limit:
+        fib.append(fib[-1] + fib[-2])
+    return fib
+
+
+def _code_length_case(case):
+    """freqs (B, 6, WIDTH) uint32 and as (B,) int32: a row is one tree,
+    its alphabet size that of its block."""
+    if isinstance(case, int):  # ties (even) and spreads (odd)
+        rng = np.random.default_rng(10 + case)
+        B = 6
+        as_arr = rng.integers(3, 259, B).astype(np.int32)
+        as_arr[0] = 3 if case % 2 else 258
+        freqs = np.zeros((B, MAX_TREES, WIDTH), np.uint32)
+        hi = 6 if case % 2 == 0 else 100000
+        for b in range(B):
+            freqs[b, :, :as_arr[b]] = rng.integers(0, hi, (MAX_TREES,
+                                                           as_arr[b]))
+        return freqs, as_arr
+    rng = np.random.default_rng(77)
+    edge_as = np.array([0, 1, 2, 3, 4, 257, 258, 258], np.int32)
+    if case == "small_and_full_alphabets":
+        return rng.integers(0, 900000, (8, MAX_TREES, WIDTH)), edge_as
+    if case == "all_equal":  # every comparison is a tie
+        return np.full((8, MAX_TREES, WIDTH), 7), edge_as
+    if case == "dead_rows":  # trees >= nt: no symbol counted
+        return np.zeros((8, MAX_TREES, WIDTH)), edge_as
+    if case == "wrap_at_256_leaves":  # the key keeps nleaf mod 256
+        return rng.integers(0, 3, (4, MAX_TREES, WIDTH)), \
+            np.array([256, 257, 258, 258], np.int32)
+    assert case == "fibonacci"  # the deepest trees: the clamp at 30
+    fib = _fib(2 ** 22)  # f << 9 stays below 2^31
+    freqs = np.ones((4, MAX_TREES, WIDTH), np.int64)
+    freqs[0, :, :len(fib)] = fib
+    freqs[1, :, :len(fib)] = fib[::-1]
+    freqs[2, :, 100:100 + len(fib)] = fib
+    freqs[3] = 2 ** 20 - 1
+    return freqs, np.array([len(fib), 258, 258, 258], np.int32)
+
+
+@pytest.mark.parametrize("trial", [
+    0, 1, 2, 3, "small_and_full_alphabets", "all_equal", "dead_rows",
+    "wrap_at_256_leaves", "fibonacci"])
 def test_make_code_lengths_rows(trial):
-    """Against the JAX op and native/huffman2.c (ties and spreads)."""
-    rng = np.random.default_rng(10 + trial)
-    B = 6
-    as_arr = rng.integers(3, 259, B).astype(np.int32)
-    as_arr[0] = 3 if trial % 2 else 258
-    nt_arr = np.full(B, MAX_TREES, np.int32)
-    freqs = np.zeros((B, MAX_TREES, WIDTH), np.uint32)
-    hi = 6 if trial % 2 == 0 else 100000
-    for b in range(B):
-        freqs[b, :, :as_arr[b]] = rng.integers(0, hi, (MAX_TREES,
-                                                       as_arr[b]))
+    """The plain version (what the CUDA kernel is held to on the card)
+    against the JAX op and native/huffman2.c, exactly: ties, spreads
+    and the edges (alphabets of 0 to 4, 257 and 258 symbols, all-equal
+    and all-zero frequencies, the deepest trees)."""
+    freqs, as_arr = _code_length_case(trial)
+    freqs = np.asarray(freqs, np.uint32)
+    B = freqs.shape[0]
     rows = freqs.reshape(-1, WIDTH).astype(np.int32)
     as_rows = np.repeat(as_arr, MAX_TREES).astype(np.int32)
-    got = to_numpy(huffenc._make_code_lengths_rows(to_torch(rows),
-                                                   to_torch(as_rows)))
+    got = to_numpy(huffenc.make_code_lengths_rows(to_torch(rows),
+                                                  to_torch(as_rows)))
     np.testing.assert_array_equal(
         got, np.asarray(jhuff.make_code_lengths_rows(rows, as_rows)))
-    lengths = np.ones((B, MAX_TREES, WIDTH), np.uint8)
-    for b in range(B):
-        lengths[b, :, as_arr[b]:] = 0
-    native.em_mstep(freqs, as_arr, nt_arr, lengths)
-    got = got.reshape(B, MAX_TREES, WIDTH)
-    for b in range(B):
-        np.testing.assert_array_equal(got[b, :, :as_arr[b]],
-                                      lengths[b, :, :as_arr[b]])
+    assert got.max() <= 30 and (trial != "fibonacci" or got.max() == 30)
+    assert not got[np.arange(WIDTH)[None] >= as_rows[:, None]].any()
+    ok = as_arr >= 2  # the C routine's domain
+    lengths = np.ones((int(ok.sum()), MAX_TREES, WIDTH), np.uint8)
+    native.em_mstep(freqs[ok], as_arr[ok],
+                    np.full(int(ok.sum()), MAX_TREES, np.int32), lengths)
+    got = got.reshape(B, MAX_TREES, WIDTH)[ok]
+    for b, n in enumerate(as_arr[ok]):
+        np.testing.assert_array_equal(got[b, :, :n], lengths[b, :, :n])
+
+
+def test_make_code_lengths_wrapper_refuses_other_devices():
+    """CPU tensors take the plain version; a CUDA tensor would launch
+    the kernel; anything else raises (nothing falls back silently)."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        huffenc.make_code_lengths_rows(
+            torch.zeros((1, WIDTH), dtype=torch.int32, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        huffenc.make_code_lengths_cuda(
+            torch.zeros((1, WIDTH), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("cf", [1, 2, 8])

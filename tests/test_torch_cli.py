@@ -1,10 +1,11 @@
-"""The port's front end (lbzip2_tpu_torch/cli.py) on the CPU.
+"""The port's own front end (lbzip2_tpu_torch/cli.py) on the CPU.
 
 With LBZIP2_TPU_ENGINE=device its compress and decompress call the
-port (checked with spies) and give the JAX CLI's bytes, exit codes and
-messages; the JAX CLI's engine functions are restored after ``main``;
-nothing imports jax.  ``cli.DEVICE`` is set to "cpu" here: the port
-runs the kernels' plain versions.
+port's engines (checked with spies) and give the JAX CLI's bytes, exit
+codes and messages; it touches nothing of the JAX CLI's module; nothing
+imports jax.  ``cli.DEVICE`` is set to "cpu" here: the port runs the
+kernels' plain versions.  The default (streaming) engine is in
+test_torch_cli_stream.py.
 """
 
 import bz2
@@ -144,6 +145,8 @@ def test_engines_restored_after_a_failing_engine(tmp_path, monkeypatch):
 
 
 def test_other_engines_are_the_jax_clis(tmp_path, spies, monkeypatch):
+    """The oracle engine is the port's own copy of the sequential
+    reference codec, as in the JAX CLI; the device engines stay out."""
     monkeypatch.setenv("LBZIP2_TPU_ENGINE", "oracle")
     f = tmp_path / "x.txt"
     f.write_bytes(b"oracle engine " * 50)

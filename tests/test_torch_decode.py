@@ -17,10 +17,11 @@ import pytest
 import torch
 
 from lbzip2_tpu import native
-from lbzip2_tpu.core.constants import StreamError
+from lbzip2_tpu.core.constants import StreamError as JaxStreamError
 from lbzip2_tpu.parallel import decode as jdec
 from lbzip2_tpu.parallel.encode import compress_parallel
 from lbzip2_tpu.ref import bwt as ref_bwt
+from lbzip2_tpu_torch.core.constants import StreamError
 from lbzip2_tpu_torch.ops import huffdec
 from lbzip2_tpu_torch.parallel import decode
 
@@ -100,10 +101,12 @@ def test_device_stages_match_jax_device_stages(switches, name):
 
 
 def _code(fn, blob, **kw):
+    """Name of the stream error ``fn`` raises (each package has its own
+    StreamError and Error enum, member for member), or None."""
     try:
         fn(blob, **kw)
-    except StreamError as e:
-        return e.code
+    except (StreamError, JaxStreamError) as e:
+        return e.code.name
     return None
 
 

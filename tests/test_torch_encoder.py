@@ -26,13 +26,20 @@ needs_native = pytest.mark.skipif(not native.native_available(),
                                   reason="needs C toolchain")
 
 
+def _set(monkeypatch, name, value):
+    """Set a scheduler switch of both engines: each package reads its
+    own module's."""
+    for mod in (encoder, jenc):
+        monkeypatch.setattr(mod, name, value)
+
+
 @pytest.fixture()
 def device_only(monkeypatch):
     """Chain mode with host stealing off, so the device does every
-    eligible block (both packages read these from the JAX module)."""
-    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", True)
-    monkeypatch.setattr(jenc, "_HOST_STEAL", False)
-    monkeypatch.setattr(jenc, "_STEALBACK", False)
+    eligible block, in the port's engine and in the JAX package's."""
+    _set(monkeypatch, "_DEVICE_CHAIN", True)
+    _set(monkeypatch, "_HOST_STEAL", False)
+    _set(monkeypatch, "_STEALBACK", False)
     return jenc
 
 
@@ -64,10 +71,10 @@ def test_compress_matches_jax_and_host(device_only, kind):
 @needs_native
 def test_multi_batch_pipeline(device_only, monkeypatch):
     """Several batches in flight and the end-of-stream drain, through
-    the inherited _build_batch with small buckets."""
-    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
-    monkeypatch.setattr(jenc, "_MID_CUTOFF", 8192)
-    monkeypatch.setattr(jenc, "_BATCH", 2)
+    the pool's _build_batch with small buckets."""
+    _set(monkeypatch, "_BUCKETS", (8192, 131072))
+    _set(monkeypatch, "_MID_CUTOFF", 8192)
+    _set(monkeypatch, "_BATCH", 2)
     rng = np.random.default_rng(1)
     data = bytes(rng.integers(97, 123, size=200_000, dtype=np.uint8))
     out = encoder.compress(data, 1, device="cpu")
@@ -155,9 +162,9 @@ def test_drain_loop_stops_on_error():
 @pytest.fixture()
 def token_mode(monkeypatch):
     """Token mode (LBZ2_DEVICE_CHAIN=0) with host stealing off."""
-    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", False)
-    monkeypatch.setattr(jenc, "_HOST_STEAL", False)
-    monkeypatch.setattr(jenc, "_STEALBACK", False)
+    _set(monkeypatch, "_DEVICE_CHAIN", False)
+    _set(monkeypatch, "_HOST_STEAL", False)
+    _set(monkeypatch, "_STEALBACK", False)
     return jenc
 
 
@@ -180,9 +187,9 @@ def test_token_mode_matches_jax_and_host(token_mode, kind):
 def test_token_mode_multi_batch_with_raw_rows(token_mode, monkeypatch):
     """Several token-mode batches in flight, rows within the token
     capacity and rows over it (random bytes) in one stream."""
-    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
-    monkeypatch.setattr(jenc, "_MID_CUTOFF", 8192)
-    monkeypatch.setattr(jenc, "_BATCH", 2)
+    _set(monkeypatch, "_BUCKETS", (8192, 131072))
+    _set(monkeypatch, "_MID_CUTOFF", 8192)
+    _set(monkeypatch, "_BATCH", 2)
     rng = np.random.default_rng(2)
     parts = [bytes(rng.integers(97, 100, 100_000, dtype=np.uint8)),
              bytes(rng.integers(0, 256, 100_000, dtype=np.uint8)),
@@ -206,11 +213,11 @@ def test_token_mode_multi_batch_with_raw_rows(token_mode, monkeypatch):
 @needs_native
 @pytest.mark.parametrize("chain", [True, False])
 def test_device_chain_switch_picks_the_engine(monkeypatch, chain):
-    """The pool reads the JAX module's _DEVICE_CHAIN when it runs:
+    """The pool reads its module's _DEVICE_CHAIN when it is made:
     False dispatches bwt2_tokens and never bwt2_bytes, True the other
     way round; warm_device warms the same mode."""
-    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", chain)
-    monkeypatch.setattr(jenc, "_HOST_STEAL", False)
+    _set(monkeypatch, "_DEVICE_CHAIN", chain)
+    _set(monkeypatch, "_HOST_STEAL", False)
     monkeypatch.setattr(encoder, "_warmed", False)
     calls = {"bwt2_tokens": 0, "bwt2_bytes": 0}
     for name in calls:
@@ -252,9 +259,9 @@ def test_device_chain_env_selects_mode(env, mode):
 
 _FEW_BLOCKS = (
     "import numpy as np\n"
-    "from lbzip2_tpu.codec import encoder as jenc\n"
     "from lbzip2_tpu_torch.codec import encoder\n"
-    "jenc._BUCKETS, jenc._MID_CUTOFF, jenc._BATCH = (8192, 131072), 8192, 2\n"
+    "encoder._BUCKETS, encoder._MID_CUTOFF, encoder._BATCH = \\\n"
+    "    (8192, 131072), 8192, 2\n"
     "rng = np.random.default_rng(1)\n"
     "data = bytes(rng.integers(97, 123, 300_000, dtype=np.uint8))\n"
     "encoder.compress(data, 1, device='cpu')\n")
@@ -279,12 +286,12 @@ def test_process_exits_cleanly_right_after_compress():
 @needs_native
 @pytest.mark.parametrize("steal", [True, False])
 def test_no_engine_thread_outlives_compress(monkeypatch, steal):
-    monkeypatch.setattr(jenc, "_DEVICE_CHAIN", True)
-    monkeypatch.setattr(jenc, "_HOST_STEAL", steal)
-    monkeypatch.setattr(jenc, "_STEALBACK", steal)
-    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
-    monkeypatch.setattr(jenc, "_MID_CUTOFF", 8192)
-    monkeypatch.setattr(jenc, "_BATCH", 2)
+    _set(monkeypatch, "_DEVICE_CHAIN", True)
+    _set(monkeypatch, "_HOST_STEAL", steal)
+    _set(monkeypatch, "_STEALBACK", steal)
+    _set(monkeypatch, "_BUCKETS", (8192, 131072))
+    _set(monkeypatch, "_MID_CUTOFF", 8192)
+    _set(monkeypatch, "_BATCH", 2)
     rng = np.random.default_rng(1)
     data = bytes(rng.integers(97, 123, 300_000, dtype=np.uint8))
     assert encoder.compress(data, 1, device="cpu") == \

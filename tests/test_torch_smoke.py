@@ -1,6 +1,6 @@
 """chip_smoke.py's contracts that hold off the card: it imports only the
 port, its host reference is the host C pipeline, it refuses to run
-without CUDA, and the port's helpers it relies on agree with the JAX
+without CUDA, and the port's helpers it relies on agree with the
 engine's batch builder."""
 
 import ast
@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 from lbzip2_tpu import native
-from lbzip2_tpu.codec import encoder as jenc
 from lbzip2_tpu.parallel.encode import compress_parallel
 from lbzip2_tpu_torch.codec import encoder
 
@@ -70,8 +69,8 @@ def test_smoke_host_reference_is_host_pipeline():
 @pytest.mark.parametrize("kind,want", [
     ("text", 1), ("periodic", 0), ("mid_tail", 1), ("empty", 0)])
 def test_device_eligible_matches_build_batch(kind, want, monkeypatch):
-    monkeypatch.setattr(jenc, "_BUCKETS", (8192, 131072))
-    monkeypatch.setattr(jenc, "_MID_CUTOFF", 65536)
+    monkeypatch.setattr(encoder, "_BUCKETS", (8192, 131072))
+    monkeypatch.setattr(encoder, "_MID_CUTOFF", 65536)
     rng = np.random.default_rng(3)
     if kind == "text":
         data = bytes(rng.integers(97, 123, 8000, dtype=np.uint8))
