@@ -1,6 +1,14 @@
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
     python3 chip_smoke.py [--seed S] [--measure]
+    python3 chip_smoke.py --kernels [--tree DIR] [--profile]
+
+The second form runs no phase: it builds the MTF-rank and inverse-BWT
+kernels of this checkout (or of the checkout at DIR, whose wrappers
+have the same signatures: run both in turns inside one call to compare
+two trees), holds them against their plain versions on the timed inputs
+of phases 3 and 9, and prints their CUDA-event times, with --profile
+each CUDA kernel's device time too, as one JSON line.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -12,6 +20,8 @@ Phases (any failure exits non-zero before the last line is printed):
              symbols, an alphabet of 1 and rows with n = 0, 1 and N,
              plus the (8, 8192) bucket and a ragged (4, 12289) width;
              tolerance 0 (integer ranks must be equal); CUDA-event times
+             on the real rows and on the uniform symbols (every rank
+             equally likely: the kernel's worst case)
   4. sweeps: the compare-exchange sweep kernel against its plain
              version at the probe's (32, 7040, 128), sub 4, 210 sweeps,
              and at sweeps 0, 1 and 2, sub 1, int32 extremes and small
@@ -49,14 +59,23 @@ Phases (any failure exits non-zero before the last line is printed):
              (8, 901120) on real rows and primaries of phase 8's text
              blocks, on rows of n = 1 and 2, one repeated byte and
              uniform random bytes, on a batch with 3 live rows padded
-             with n = 1, idx = 0, and at a ragged (3, 10001); tolerance
-             0; CUDA-event times on the text batch
+             with n = 1, idx = 0, on n = 1 rows only, on rows that are
+             no single cycle (two cycles; idx at and past n), at a
+             ragged (3, 10001) and at a width of 2^21, where the
+             splitters stand 64 apart; tolerance 0; the rows each case redid
+             by pointer doubling, which must be none for the text
+             rows; CUDA-event times on the text batch, the 3-live batch
+             and the n = 1 batch, and each CUDA kernel's device time on
+             them by torch.profiler: the two smaller batches' shares of
+             the text batch's time must stay under IBWT_DEVICE_SHARES
+             and IBWT_CALL_SHARES (work that follows the live lanes)
  10. decode: lbzip2_tpu_torch.parallel.decode.decompress_parallel(blob,
              device="cuda") and decompress_stream (the CLI's default
              engine) with both device stages on, on the phase-6 stream
              and on bz2.compress(data, 9): equal to data, both kernels
              launched, one Huffman launch and one IBWT row for every
-             block (no block decoded twice); warm MB/s beside the host
+             block (no block decoded twice), no row redone by pointer
+             doubling; warm MB/s beside the host
              C path (both switches off); with --measure also a run
              under torch.profiler for the idle share
  11. cli:    python -m lbzip2_tpu_torch in child processes with
@@ -227,15 +246,29 @@ def max_err_of(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def kernel_phase(text: bytes, dev):
-    """MTF kernel vs plain version at (32, 901120); returns the record
-    and the BWT batch it was taken on (bwt, ns, cmaps, primary)."""
+def device_us(fn, reps: int = 5) -> dict:
+    """Device time of each CUDA kernel and copy of one call of ``fn``,
+    in microseconds by torch.profiler, the mean of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:40]: round(e.device_time_total / reps, 2)
+            for e in prof.key_averages() if e.device_time_total}
+
+
+def mtf_timed_cases(text: bytes, dev):
+    """The MTF kernel's two timed inputs at (32, 901120), as (syms, ns):
+    the compacted BWT rows of the first 32 text blocks and uniform
+    random symbols; and the BWT batch (bwt, ns, cmaps, primary)."""
     from lbzip2_tpu_torch.codec.encoder import lyndon_rows
-    from lbzip2_tpu_torch.ops import mtf_pallas
     from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes
     from lbzip2_tpu_torch.ops.chain import _compact_syms
 
-    # real rows: compacted BWT of the first 32 text blocks
     tb = np.frombuffer(text, np.uint8)
     blocks = [tb[(r * BLOCK) % tb.size:][:BLOCK] for r in range(ROWS)]
     batch, ns, ms = lyndon_rows(blocks, WIDTH)
@@ -248,12 +281,23 @@ def kernel_phase(text: bytes, dev):
                               torch.from_numpy(ms).to(dev))
     torch.cuda.synchronize()
     log(f"bwt2_bytes (32, 901120) text batch: {time.time() - t0:.3f} s")
-    real = _compact_syms(bwt, torch.from_numpy(cmaps).to(dev))
-
+    real = _compact_syms(bwt, torch.from_numpy(cmaps).to(dev)).contiguous()
     gen = torch.Generator(device=dev).manual_seed(1)
     uni = torch.randint(0, 256, (ROWS, WIDTH), generator=gen, device=dev,
                         dtype=torch.int32)
     n_full = torch.full((ROWS,), WIDTH, dtype=torch.int32, device=dev)
+    return {"real_text_rows": (real, torch.from_numpy(ns).to(dev)),
+            "uniform_256": (uni, n_full)}, (bwt, ns, cmaps, primary)
+
+
+def kernel_phase(text: bytes, dev):
+    """MTF kernel vs plain version at (32, 901120); returns the record
+    and the BWT batch it was taken on (bwt, ns, cmaps, primary)."""
+    from lbzip2_tpu_torch.ops import mtf_pallas
+
+    timed, text_batch = mtf_timed_cases(text, dev)
+    uni, n_full = timed["uniform_256"]
+    gen = torch.Generator(device=dev).manual_seed(2)
     n_edge = torch.tensor([(0, 1, WIDTH)[r % 3] for r in range(ROWS)],
                           dtype=torch.int32, device=dev)
     # widths off the kernel's 4096-symbol chunk and 32-lane grid
@@ -262,8 +306,7 @@ def kernel_phase(text: bytes, dev):
     n_ragged = torch.tensor([0, 4096, 4097, 12289], dtype=torch.int32,
                             device=dev)
     cases = {
-        "real_text_rows": (real, torch.from_numpy(ns).to(dev)),
-        "uniform_256": (uni, n_full),
+        **timed,
         "alphabet_1": (torch.zeros_like(uni), n_full),
         "n_0_1_N": (uni, n_edge),
         "small_bucket_8x8192": (uni[:8, :8192], n_full[:8].clamp(max=8192)),
@@ -279,22 +322,22 @@ def kernel_phase(text: bytes, dev):
         log(f"mtf kernel vs plain [{name}]: max_abs_err {err}")
         assert err == 0, f"MTF kernel disagrees with plain on {name}"
 
-    syms, nn = cases["real_text_rows"]
-    syms = syms.contiguous()
+    syms, nn = timed["real_text_rows"]
     ms_k = cuda_ms(lambda: mtf_pallas.mtf_ranks_rows(syms, nn), 10)
     ms_p = cuda_ms(lambda: mtf_pallas.mtf_ranks_plain(syms, nn), 2)
+    ms_u = cuda_ms(lambda: mtf_pallas.mtf_ranks_rows(uni, n_full), 10)
     log(f"mtf_ranks (32, 901120) real rows: kernel {ms_k:.3f} ms, "
-        f"plain {ms_p:.3f} ms")
+        f"plain {ms_p:.3f} ms; uniform_256 rows: kernel {ms_u:.3f} ms")
     # in and out (B, N) int32 and ns; a rank needs no fewer than one
     # operation a symbol, whatever the algorithm
     record = {"name": "mtf_ranks", "route": "cuda",
               "source": "lbzip2_tpu_torch/csrc/mtf_ranks.cu",
               "replaces": "lbzip2_tpu/ops/mtf_pallas.py:81",
               "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-              "plain_ms": ms_p,
+              "plain_ms": ms_p, "uniform_256_ms": ms_u,
               **bound(2 * syms.numel() * 4 + nn.numel() * 4,
                       int(nn.sum()))}
-    return record, (bwt, ns, cmaps, primary)
+    return record, text_batch
 
 
 def code_length_cases(real: list, dev) -> dict:
@@ -610,6 +653,37 @@ def huffdec_phase(chain_blob: bytes, data: bytes, dev):
                     groups_t * 50 * 26)}
 
 
+IBWT_TIMED = ("text_8x901120", "padded_3_live", "n1_only")
+# the most that 3 live rows of 8, and n = 1 rows only, may take of the 8
+# text rows' time.  Of the kernels' own time on the card, which follows
+# the live lanes, the limits the design set itself; of the whole call's
+# CUDA-event time, where seven launches and the wait for the flags cost
+# every batch the same 50 to 60 us of an idle card and the host's load
+# moves the reading (0.58 to 0.62 and 0.11 to 0.15 in a quiet run),
+# limits that only a fixed cost grown by half again would cross
+IBWT_DEVICE_SHARES = (0.6, 0.2)
+IBWT_CALL_SHARES = (0.7, 0.3)
+
+
+def ibwt_batch(rows, dev, width: int):
+    """(bwt, ns, idxs) on the card from (bwt, idx) rows, padded to 8
+    rows as the decoder's batcher pads: n = 1, idx = 0."""
+    b = np.zeros((8, width), np.uint8)
+    ns = np.ones(8, np.int32)
+    idxs = np.zeros(8, np.int32)
+    for r, (bwt, idx) in enumerate(rows):
+        b[r, :bwt.size], ns[r], idxs[r] = bwt, bwt.size, idx
+    return tuple(torch.from_numpy(a).to(dev) for a in (b, ns, idxs))
+
+
+def ibwt_timed_cases(text: list, dev) -> dict:
+    """The inverse BWT's three timed batches at (8, 901120) from the
+    (bwt, idx) of 8 text blocks: all 8, 3 of them, none."""
+    return {"text_8x901120": ibwt_batch(text, dev, WIDTH),
+            "padded_3_live": ibwt_batch(text[:3], dev, WIDTH),
+            "n1_only": ibwt_batch([], dev, WIDTH)}
+
+
 def ibwt_phase(chain_blob: bytes, dev):
     """Inverse-BWT kernel vs plain version at (8, 901120) and edge
     cases; returns the record."""
@@ -617,6 +691,7 @@ def ibwt_phase(chain_blob: bytes, dev):
     from lbzip2_tpu_torch.parallel.decode import _IBWT_N, block_payloads
 
     B = 8
+    assert _IBWT_N == WIDTH
     arr = np.frombuffer(chain_blob, np.uint8)
     text = []  # (bwt, idx) of the stream's first 8 blocks (text)
     for pos in block_payloads(chain_blob)[:B]:
@@ -626,45 +701,93 @@ def ibwt_phase(chain_blob: bytes, dev):
         text.append((bwt, idx))
 
     def batch(rows, width=_IBWT_N):
-        b = np.zeros((B, width), np.uint8)
-        ns = np.ones(B, np.int32)  # pad rows: n = 1, idx = 0
-        idxs = np.zeros(B, np.int32)
-        for r, (bwt, idx) in enumerate(rows):
-            b[r, :bwt.size], ns[r], idxs[r] = bwt, bwt.size, idx
-        return tuple(torch.from_numpy(a).to(dev) for a in (b, ns, idxs))
+        return ibwt_batch(rows, dev, width)
+
+    def random_bwt(n):
+        """BWT and primary of n random bytes (8-byte windows sort the
+        rotations: they are distinct at this n)."""
+        data = rng.integers(0, 256, n, dtype=np.uint8)
+        ext = np.concatenate([data, data[:8]])
+        keys = np.zeros(n, np.uint64)
+        for k in range(8):
+            keys = keys << np.uint64(8) | ext[k:k + n].astype(np.uint64)
+        assert np.unique(keys).size == n
+        order = np.argsort(keys, kind="stable")
+        return data[(order - 1) % n], int(np.flatnonzero(order == 0)[0])
 
     rng = np.random.default_rng(4)
     uni = rng.integers(0, 256, _IBWT_N, dtype=np.uint8)
     small = rng.integers(0, 5, 10001, dtype=np.uint8)
+    wide = 1 << 21  # past 40,960 splitters at 32 positions: 64 apart
+    assert ibwt.shift_for(wide) > ibwt.shift_for(_IBWT_N)
     cases = {
-        "text_8x901120": batch(text),
+        **ibwt_timed_cases(text, dev),
         "edges_n1_n2_repeat_uniform": batch([
             (uni[:1], 0), (uni[:2], 1),
             (np.full(BLOCK, 0x61, np.uint8), 12345),
             (uni, int(rng.integers(0, _IBWT_N)))]),
-        "padded_3_live": batch(text[:3]),
+        # ptr of [1, 0, 2, 2, ...] is 0 -> 1 -> 0 and the rest; a start
+        # at n - 1, at n and far past n
+        "two_cycles_idx_at_and_past_n": batch([
+            (np.array([1, 0] + [2] * 4998, np.uint8), 5),
+            (text[0][0], text[0][0].size - 1), (uni[:1000], 1000),
+            (uni[:1000], 5000)]),
         "ragged_3x10001": batch([(small, 7), (small[:5000], 4999),
                                  (small[:1], 0)], width=10001),
+        "wide_2097152_bwt_and_uniform": batch([
+            random_bwt(wide - 77), (uni, 3)], width=wide),
     }
-    max_err = 0
+    max_err, redone = 0, {}
     for name, args in cases.items():
+        ibwt.doubling_rows = 0
         got = ibwt.ibwt_rows(*args)
         want = ibwt.ibwt_plain(*args)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         max_err = max(max_err, err)
-        log(f"ibwt kernel vs plain [{name}]: max_abs_err {err}")
+        redone[name] = ibwt.doubling_rows
+        log(f"ibwt kernel vs plain [{name}]: max_abs_err {err}, "
+            f"{redone[name]} rows redone by doubling")
         assert err == 0, f"ibwt kernel disagrees with plain on {name}"
+    for name in ("text_8x901120", "padded_3_live", "n1_only"):
+        assert redone[name] == 0, f"{name}: rows went to doubling"
+    # the one-byte row, the two-cycle row and the starts at and past n;
+    # of the wide rows the true BWT is ranked, the uniform bytes redone
+    assert redone["edges_n1_n2_repeat_uniform"] >= 1 and \
+        redone["two_cycles_idx_at_and_past_n"] == 3 and \
+        redone["wide_2097152_bwt_and_uniform"] == 1, redone
+    ms, us = {}, {}
+    for name in IBWT_TIMED:
+        # the wrapper waits for its stream in every call, so one stall
+        # of the host shows in a mean: the median of five means of 10
+        ms[name] = sorted(cuda_ms(lambda: ibwt.ibwt_rows(*cases[name]), 10)
+                          for _ in range(5))[2]
+        us[name] = device_us(lambda: ibwt.ibwt_rows(*cases[name]))
+        log(f"ibwt device time [{name}], us: {json.dumps(us[name])}")
     args = cases["text_8x901120"]
-    ms_k = cuda_ms(lambda: ibwt.ibwt_rows(*args), 10)
+    ms_k = ms["text_8x901120"]
     ms_p = cuda_ms(lambda: ibwt.ibwt_plain(*args), 2)
+    call = [ms[name] / ms_k for name in IBWT_TIMED[1:]]
+    device = [sum(us[name].values()) / sum(us[IBWT_TIMED[0]].values())
+              for name in IBWT_TIMED[1:]]
     log(f"ibwt (8, 901120) text rows: kernel {ms_k:.3f} ms, plain "
-        f"{ms_p:.3f} ms")
+        f"{ms_p:.3f} ms; 3 live rows of 8: {ms['padded_3_live']:.3f} ms = "
+        f"{call[0]:.3f} of it ({device[0]:.3f} of its device time); "
+        f"n = 1 rows only: {ms['n1_only']:.3f} ms = {call[1]:.3f} of it "
+        f"({device[1]:.3f} of its device time)")
+    assert all(d <= lim for d, lim in zip(device, IBWT_DEVICE_SHARES)), \
+        f"ibwt's device time does not follow the live lanes: {device}"
+    assert all(c <= lim for c, lim in zip(call, IBWT_CALL_SHARES)), \
+        f"ibwt's time does not follow the live lanes: {call}"
     return {"name": "ibwt", "route": "cuda",
             "source": "lbzip2_tpu_torch/csrc/ibwt.cu",
             "replaces": "lbzip2_tpu/ops/ibwt.py:22",
             "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p,
+            "plain_ms": ms_p, "padded_3_live_ms": ms["padded_3_live"],
+            "n1_only_ms": ms["n1_only"],
+            "padded_3_live_device_share": device[0],
+            "n1_only_device_share": device[1],
+            "doubling_rows": redone["text_8x901120"],
             # bytes in and out; an inverse BWT is linear, no fewer than
             # one operation a position
             **bound(2 * args[0].numel() + 8 * B, int(args[1].sum()))}
@@ -679,6 +802,7 @@ def decode_phase(name: str, blob: bytes, data: bytes, dev,
     from lbzip2_tpu_torch.parallel import decode
 
     decode.DEVICE_HUFF = decode.DEVICE_IBWT = True
+    ibwt.doubling_rows = 0
     t0 = time.time()
     assert decode.decompress_parallel(blob, device=dev) == data, \
         f"{name}: device decode (first run) differs from the data"
@@ -721,6 +845,8 @@ def decode_phase(name: str, blob: bytes, data: bytes, dev,
         st["ibwt_launches"] > 0 and st["ibwt_rows"] == st["blocks"], st
     log(f"decompress_stream {name}: device stages {dt_stream:.3f} s = "
         f"{len(data) / dt_stream / 1e6:.3f} MB/s; {json.dumps(st)}")
+    assert ibwt.doubling_rows == 0, \
+        f"{name}: {ibwt.doubling_rows} IBWT rows went to pointer doubling"
     decode.DEVICE_HUFF = decode.DEVICE_IBWT = False
     t0 = time.time()
     host = decode.decompress_parallel(blob, device=dev)
@@ -780,12 +906,53 @@ def cli_phase(few: bytes) -> None:
         "the port CLI compressed without a CUDA device"
 
 
+def kernels_only(seed: int, profiled: bool, dev) -> int:
+    """--kernels: the MTF-rank and inverse-BWT kernels of the package on
+    the path, held against their plain versions (tolerance 0) and timed
+    on phase 3's and phase 9's timed inputs; one JSON line."""
+    from lbzip2_tpu_torch.ops import ibwt, mtf_pallas
+
+    _, text = make_data(seed, text_blocks=ROWS)
+    mtf_cases, (bwt, ns, _, primary) = mtf_timed_cases(text, dev)
+    rows = [(bwt[r, :ns[r]].cpu().numpy(), int(primary[r])) for r in range(8)]
+    calls = {f"mtf_{name}": (mtf_pallas.mtf_ranks_rows,
+                             mtf_pallas.mtf_ranks_plain, a)
+             for name, a in mtf_cases.items()}
+    calls.update({f"ibwt_{name}": (ibwt.ibwt_rows, ibwt.ibwt_plain, a)
+                  for name, a in ibwt_timed_cases(rows, dev).items()})
+    res = {"package": os.path.dirname(mtf_pallas.__file__),
+           "card": card_line(), "ms": {}, "max_abs_err": {}}
+    for name, (kernel, plain, a) in calls.items():
+        got, want = kernel(*a), plain(*a)
+        torch.cuda.synchronize()
+        res["max_abs_err"][name] = max_err_of(got, want)
+        res["ms"][name] = cuda_ms(lambda: kernel(*a), 10)
+        if profiled:
+            res.setdefault("kernels_us", {})[name] = device_us(
+                lambda: kernel(*a))
+    first = ibwt.ibwt_rows(*calls["ibwt_text_8x901120"][2])[0, :BLOCK]
+    assert first.cpu().numpy().tobytes() == text[:BLOCK], \
+        "the inverse BWT of a text row is not the block"
+    print(json.dumps(res), flush=True)
+    assert not any(res["max_abs_err"].values()), "a kernel disagrees"
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--measure", action="store_true",
                     help="also run the whole stream with the plain M-step "
                     "and the decode phase under the profiler")
+    ap.add_argument("--kernels", action="store_true",
+                    help="only time the MTF-rank and inverse-BWT kernels "
+                    "on the smoke's timed inputs")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="with --kernels: take the package from the "
+                    "checkout at DIR")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --kernels: also each CUDA kernel's device "
+                    "time by torch.profiler")
     ap.add_argument("--token-run", type=int, metavar="ELIGIBLE",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -798,6 +965,10 @@ def main(argv=None) -> int:
     os.environ["LBZ2_STEALBACK"] = "0"
     if args.token_run is not None:
         return token_run(args.token_run)
+    if args.kernels:
+        if args.tree:
+            sys.path.insert(0, os.path.abspath(args.tree))
+        return kernels_only(args.seed, args.profile, torch.device("cuda", 0))
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.ops import huffenc, mtf_pallas, sort_sweeps

@@ -1,35 +1,57 @@
-"""Batched inverse BWT by pointer doubling (Wyllie list ranking).
+"""Batched inverse BWT: list ranking over sublists on the card, pointer
+doubling (Wyllie list ranking) as the plain version.
 
 Counterpart of lbzip2_tpu/ops/ibwt.py (``ibwt_masked`` and its vmap
 ``ibwt_batched``).  ptr, the successor permutation, is the stable sort
 of the row's bytes carrying their positions (pad lanes at and past n
-sort last under key 256); start = ptr[idx]; then ceil(log2 N) doubling
-steps build visit[k] = ptr^k(start) and the output is bwt[visit], 0 at
-lanes >= n.
+sort last under key 256); seq[k] = ptr^(k+1)(idx) and the output is
+bwt[seq], 0 at lanes >= n.
 
-``ibwt_rows`` runs the hand-written kernel ``csrc/ibwt.cu`` (a stable
-counting sort for ptr, one launch per doubling step) for a CUDA tensor,
-and the plain PyTorch version for a CPU tensor.
+``ibwt_rows`` runs the hand-written kernels of ``csrc/ibwt.cu`` for a
+CUDA tensor: a stable counting sort of the live lanes for ptr, then
+Helman and JaJa's list ranking (splitters every ``1 << SHIFT`` positions,
+one thread a sublist, the splitter list ranked in one block's shared
+memory, a second walk that writes the bytes), work proportional to the
+live lanes.  A row that is no single cycle over [0, n) cannot be
+ranked that way; the kernels flag it and the wrapper redoes it with the
+doubling kernels of the same source (``doubling_rows`` counts them).
+For a CPU tensor it runs the plain PyTorch version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
 from lbzip2_tpu_torch import _build
 
 CHUNK = 4096  # positions per counting-sort chunk of the CUDA kernel
-KEYS = 257    # 256 byte values and the pad key
+KEYS = 257    # 256 byte values and the pad key (the plain version's)
+SHIFT = 5     # a splitter every 2^SHIFT positions, or more (shift_for)
+MAX_SPLITTERS = 40960  # a row's splitter list must fit 160 KB of an SM
+CAP = 64      # a walk longer than CAP << shift steps gives up: redo
+MAX_N = 1 << 23   # ptr << 8 | byte must fit an int32
 
-launches = 0  # CUDA kernel launches made by ibwt_rows
+launches = 0       # calls of ibwt_rows that launched the CUDA kernels
+doubling_rows = 0  # rows those calls redid by pointer doubling
+_held = threading.local()  # a thread's scratch and pinned redo flags
 
 
 def steps_for(N: int) -> int:
     """Doubling steps of a width-N row, as the JAX scan counts them."""
     return max(1, math.ceil(math.log2(N)))
+
+
+def shift_for(N: int) -> int:
+    """log2 of the splitter spacing for width-N rows: SHIFT, or what
+    keeps the splitters of a row within MAX_SPLITTERS."""
+    shift = SHIFT
+    while -(-N // (1 << shift)) + 1 > MAX_SPLITTERS:
+        shift += 1
+    return shift
 
 
 def ibwt_plain(bwt: torch.Tensor, ns: torch.Tensor,
@@ -60,18 +82,45 @@ def ibwt_plain(bwt: torch.Tensor, ns: torch.Tensor,
 
 
 def _lib():
-    fn = _build.load("ibwt").lbz2t_ibwt
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("ibwt")
+    if lib.lbz2t_ibwt.argtypes is None:
+        lib.lbz2t_ibwt.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lbz2t_ibwt_doubling.argtypes = [ctypes.c_void_p] * 9 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lbz2t_ibwt.restype = lib.lbz2t_ibwt_doubling.restype = \
+            ctypes.c_int
+    return lib
+
+
+def _workspace(dev: torch.device, B: int, words: int):
+    """The calling thread's scratch (words int32 on the card), its (B,)
+    int32 redo flags in pinned host memory and their numpy view, kept
+    until the thread asks for another size: a call has waited for all
+    it queued on them before it returns, so the thread's next call may
+    take them again and allocates nothing."""
+    key = (dev, B, words)
+    if getattr(_held, "key", None) != key:
+        flags = torch.empty(B, dtype=torch.int32, pin_memory=True)
+        _held.key, _held.tensors = key, (
+            torch.empty(words, dtype=torch.int32, device=dev), flags,
+            flags.numpy())
+    return _held.tensors
 
 
 def ibwt_cuda(bwt: torch.Tensor, ns: torch.Tensor,
               idxs: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernels on the current stream (no synchronize)."""
-    global launches
+    """Launch the CUDA kernels on the current stream and wait for the
+    per-row redo flags (one synchronize of that stream); the flagged
+    rows are redone by doubling before the call returns.
+
+    Scratch per (8, 901120) batch, one tensor that the calling thread
+    keeps from call to call: ptr 28.8 MB, the chunk histograms 1.8 MB,
+    the splitter entries and offsets (a word each a 32 positions) 1.8
+    MB: 32.4 MB in all, and B words of pinned host memory for the
+    flags.  A redone row takes two jump buffers and seq, 10.8 MB a row,
+    only then."""
+    global launches, doubling_rows
     dev = bwt.device
     if dev.type != "cuda" or ns.device != dev or idxs.device != dev:
         raise ValueError("ibwt_cuda needs bwt, ns and idxs on one CUDA "
@@ -87,29 +136,50 @@ def ibwt_cuda(bwt: torch.Tensor, ns: torch.Tensor,
             and idxs.is_contiguous()):
         raise ValueError("bwt, ns and idxs must be contiguous")
     B, N = bwt.shape
+    if N >= MAX_N:
+        raise ValueError(f"rows of {N} lanes: the kernel takes fewer "
+                         f"than {MAX_N}")
     out = torch.empty_like(bwt)
     if B == 0 or N == 0:
         return out
     nch = -(-N // CHUNK)
-    i32 = dict(dtype=torch.int32, device=dev)
-    hist = torch.empty((B, nch, KEYS), **i32)
-    jump = torch.empty((2, B, N), **i32)
-    seq = torch.empty((B, N), **i32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(bwt.data_ptr(), ns.data_ptr(), idxs.data_ptr(),
-                 out.data_ptr(), hist.data_ptr(), jump[0].data_ptr(),
-                 jump[1].data_ptr(), seq.data_ptr(), B, N, CHUNK,
-                 steps_for(N), stream)
+    shift = shift_for(N)
+    S = -(-N // (1 << shift)) + 1
+    # ptr, splitter entries, offsets, chunk histograms, key totals, flags
+    scratch, redo, redo_host = _workspace(
+        dev, B, B * (N + 2 * S + nch * 256 + 256 + 1))
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev)
+    err = lib.lbz2t_ibwt(bwt.data_ptr(), ns.data_ptr(), idxs.data_ptr(),
+                         out.data_ptr(), scratch.data_ptr(), redo.data_ptr(),
+                         B, N, CHUNK, shift, CAP << shift,
+                         stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"ibwt kernel launch failed: cudaError {err}")
     launches += 1
+    stream.synchronize()
+    if redo_host.any():
+        rows = torch.nonzero(redo)[:, 0].to(dev, torch.int32)
+        R = rows.numel()
+        jump = torch.empty((2, R, N), dtype=torch.int32, device=dev)
+        seq = torch.empty((R, N), dtype=torch.int32, device=dev)
+        err = lib.lbz2t_ibwt_doubling(
+            bwt.data_ptr(), ns.data_ptr(), idxs.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), rows.data_ptr(), jump[0].data_ptr(),
+            jump[1].data_ptr(), seq.data_ptr(), R, N, steps_for(N),
+            stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ibwt doubling launch failed: cudaError "
+                               f"{err}")
+        doubling_rows += R
+        stream.synchronize()  # the kept scratch is free again
     return out
 
 
 def ibwt_rows(bwt: torch.Tensor, ns: torch.Tensor,
               idxs: torch.Tensor) -> torch.Tensor:
     """Batched inverse BWT (B, N) uint8, 0 at lanes >= n: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernels for a CUDA tensor, the plain version for a CPU tensor."""
     if bwt.device.type == "cuda":
         return ibwt_cuda(bwt, ns, idxs)
     if bwt.device.type == "cpu":

@@ -6,10 +6,12 @@ Counterpart of lbzip2_tpu/ops/mtf_pallas.py (the Pallas TPU kernel
 (lbzip2_tpu/ops/chain.py:34-42).  The kernel is
 ``csrc/mtf_ranks.cu``: chunk-parallel over each row (per-chunk last
 positions, an exclusive max-scan over chunks, then one warp per chunk
-walking its symbols with last[256] in registers).  What bounds it on the
-card is the per-symbol dependent chain of warp shuffles and reductions,
-about 29 M symbols and 115 MB of int32 in and out per (32, 901120)
-batch; see the source for the design.
+holding the 256-entry move-to-front list in its registers: run
+continuations are skipped, any other symbol is found by one ballot a
+32-entry level, so the work grows with the rank).  What bounds it on
+the card is instruction throughput, some 20 warp instructions a symbol
+found in the first level, against 231 MB of int32 in and out per
+(32, 901120) batch; see the source for the design.
 
 ``mtf_ranks_rows`` takes the plain version only for a CPU tensor.  For
 a CUDA tensor it launches the kernel or raises.
@@ -24,7 +26,7 @@ import torch
 from lbzip2_tpu_torch import _build
 
 PLAIN_CHUNK = 2048   # positions per step of the plain version
-KERNEL_CHUNK = 4096  # positions per warp in the CUDA rank pass
+KERNEL_CHUNK = 2048  # positions per warp in the CUDA rank pass
 
 launches = 0  # CUDA kernel launches made by mtf_ranks_rows
 

@@ -265,7 +265,7 @@ def _emit_result(bwt, idx, rnd, newpos,
     """IBWT + RLE1-expand a retrieved block into result chunks
     (slot-pooled when a SlotPool bounds memory)."""
     if batcher is not None and not rnd:
-        # device IBWT (batched Wyllie list ranking), host RLE1+CRC
+        # device IBWT (batched sublist list ranking), host RLE1+CRC
         if not (0 <= idx < bwt.size):
             return {"err": Error.ERR_RUNLEN.value}
         rle_domain = batcher.run(bwt, int(idx))
