@@ -3,12 +3,14 @@
     python3 chip_smoke.py [--seed S] [--measure]
     python3 chip_smoke.py --kernels [--tree DIR] [--profile]
 
-The second form runs no phase: it builds the MTF-rank and inverse-BWT
-kernels of this checkout (or of the checkout at DIR, whose wrappers
-have the same signatures: run both in turns inside one call to compare
-two trees), holds them against their plain versions on the timed inputs
-of phases 3 and 9, and prints their CUDA-event times, with --profile
-each CUDA kernel's device time too, as one JSON line.
+The second form runs no phase: it builds the MTF-rank, inverse-BWT and
+code-length kernels and the EM loop of this checkout (or of the checkout
+at DIR, whose wrappers have the same signatures: run both in turns
+inside one call to compare two trees), holds them against their plain
+versions on the timed inputs of phases 3, 9, 12 and 13, and prints
+their CUDA-event times, with --profile each CUDA kernel's device time
+too, and the peak of device memory over one text batch through
+chain_payloads, as one JSON line.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -31,17 +33,23 @@ Phases (any failure exits non-zero before the last line is printed):
              210 sweeps, with its launch count
   6. chain:  lbzip2_tpu_torch.codec.encoder.compress(data, 9,
              device="cuda") on ~60 MB generated from the seed, run
-             twice; the warm run is timed and its MTF and code-length
-             launches read: every M-step of the run must have launched
-             the code-length kernel and none the plain version.  The
-             output must equal the repo's host C pipeline, run out of
-             process as `bin/lbzip2 -9 -c`, byte for byte and
+             twice; the warm run is timed and its MTF and EM launches
+             read: every chain batch must have gone through the EM
+             kernels (one loop a batch, cluster_factor - 1 M-step
+             launches each) and none through the plain loop, its E-step
+             or a stand-alone M-step, and every batch must have shipped
+             exactly the rows it held.  The output must equal the repo's
+             host C pipeline, run out of process as
+             `bin/lbzip2 -9 -c`, byte for byte and
              round-trip through bz2; every device-eligible block must
              have gone through the device.  Then the same call once
              under torch.profiler for the device's idle share; with
-             --measure also once with the M-step's plain version in the
-             kernel's place (the whole stream at the speed before the
-             kernel, most of a minute).
+             --measure also once with the plain EM loop in the kernels'
+             place (plain E-steps, the M-step kernel between them, the
+             convergence test read on the host: the main path before the
+             loop moved to the card) and twice in the shipped default
+             (host stealing and steal-back on), with the blocks the
+             device took and every batch's times.
   7. tokens: the same stream in token mode, in a child process of this
              script with LBZ2_DEVICE_CHAIN=0 (the mode is read when the
              pool is made): warm, timed, the same bytes, every
@@ -92,11 +100,26 @@ Phases (any failure exits non-zero before the last line is printed):
              frequencies up to the key limit (the deepest tree, the
              clamp at 30), at R = 6 and R = 192, and on the same inputs
              against the host C make_code_lengths2 (native.em_mstep);
-             CUDA-event times at R = 192; then the whole entropy chain
-             of that batch (chain_payloads) with the kernel and with
-             the plain version in its place, the same payloads, with
-             the stage times of both.  (It runs right after phase 3, on
-             that phase's BWT batch.)
+             CUDA-event times at R = 192 on the text batch's first
+             M-step and on alphabets of 2 to 258.  The real inputs come
+             from the plain EM loop run on the card.  (It runs after
+             phase 13, on that phase's inputs.)
+ 13. em:     the EM loop's kernels (em_chain_rows: E-step from the
+             symbols, M-step a warp a tree, loop control in device
+             memory) against the plain loop on the card, tolerance 0 on
+             the selectors of all G groups, the frequencies, the lengths
+             and the iteration count: the 32-row text batch, 1, 3 and 5
+             of its rows, 1 to 6 trees in one batch, short rows that
+             settle beside text rows that still move, cluster_factor 1
+             and 2, rows of one group, random lengths up to 30 (costs
+             past the 1023 of a 10-bit lane), alphabets of 2 and 258;
+             then the whole entropy chain of the text batch
+             (chain_payloads) with the kernels and with the plain loop
+             in their place, the same payloads, with the stage times of
+             both; CUDA-event times of the loop.  (It runs right after
+             phase 3, on that phase's BWT batch.)  With --measure also
+             the device time of each op of the batch through bwt2_bytes
+             and chain_payloads.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -206,18 +229,33 @@ PEAK_OPS_S = 67e12     # float32 / int32 outside the tensor cores
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: bytes over the memory rate
     or operations over the peak rate, whichever is larger.  No single
-    PyTorch call computes any of the five kernels' functions, so there
-    is no library time to set beside them."""
+    PyTorch call computes any of the six kernels' functions (the EM
+    loop least of all: a data-dependent number of rounds of a packed
+    argmin and a Huffman construction), so there is no library time to
+    set beside them."""
     by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "library_ms": None,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def device_busy(prof) -> tuple[float, int]:
+    """(seconds the device was busy, device intervals) of a profile: the
+    union of its device intervals (kernels, copies, memsets)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e6, len(spans)  # the profiler's microseconds
+
+
 def idle_share(name: str, fn):
     """Run ``fn`` once under torch.profiler and log the device's idle
-    share: 1 - (union of the trace's device intervals: kernels, copies,
-    memsets) / wall.  Returns fn's result."""
-    from torch.autograd import DeviceType
+    share: 1 - (device busy) / wall.  Returns fn's result."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -227,17 +265,10 @@ def idle_share(name: str, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy /= 1e6  # the profiler's microseconds
+    busy, spans = device_busy(prof)
     assert spans, f"{name}: the profiler recorded no device interval"
     log(f"idle share [{name}]: {1 - busy / wall:.3f} (device busy "
-        f"{busy:.3f} s of {wall:.3f} s profiled wall, {len(spans)} "
+        f"{busy:.3f} s of {wall:.3f} s profiled wall, {spans} "
         f"device intervals)")
     return out
 
@@ -248,7 +279,15 @@ def max_err_of(got: torch.Tensor, want: torch.Tensor) -> int:
 
 def device_us(fn, reps: int = 5) -> dict:
     """Device time of each CUDA kernel and copy of one call of ``fn``,
-    in microseconds by torch.profiler, the mean of ``reps`` calls."""
+    in microseconds by torch.profiler: the mean over the launches it
+    recorded in ``reps`` calls, times the launches of one call.
+
+    The profiler does not record every launch (as a rule the last
+    call's last kernels are missing, now and then half of a window), so
+    a sum over the window divided by ``reps`` reads a kernel at 0.8 or
+    0.5 of itself.  The launches of one call are the recorded ones over
+    ``reps``, rounded up: right while less than one call's worth is
+    missing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -257,8 +296,73 @@ def device_us(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:40]: round(e.device_time_total / reps, 2)
+    return {e.key[:40]: round(e.device_time_total / e.count *
+                              -(-e.count // reps), 2)
             for e in prof.key_averages() if e.device_time_total}
+
+
+OPS = (("bwt2", ("_seed16", "_pass8", "_emit_bytes")),
+       ("chain", ("_compact_syms", "mtf_ranks_rows", "_rle2_batch",
+                  "_flat_hist", "em_chain_rows", "_pack_groups",
+                  "_flatten_words")))
+
+
+def op_table(text: bytes, batch, dev) -> None:
+    """--measure: device time of each op of the main path for the 32-row
+    text batch, through bwt2_bytes and chain_payloads.  Each op runs
+    under a torch.profiler of its own between two synchronizes (so the
+    batch's wall is not the pool's); its time is the union of its device
+    intervals.  What the table leaves out is what runs between the ops:
+    the uploads, the downloads and a few small tensor ops."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lbzip2_tpu_torch.codec.encoder import lyndon_rows
+
+    table: dict = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            busy, spans = device_busy(prof)
+            row = table.setdefault(name, {"calls": 0, "device_ms": 0.0,
+                                          "device_intervals": 0})
+            row["calls"] += 1
+            row["device_ms"] += busy * 1e3
+            row["device_intervals"] += spans
+            return out
+        return call
+
+    tb = np.frombuffer(text, np.uint8)
+    blocks = [tb[(r * BLOCK) % tb.size:][:BLOCK] for r in range(ROWS)]
+    rows, ns, ms = lyndon_rows(blocks, WIDTH)
+    _, _, cmaps, primary = batch
+    mods = {m: importlib.import_module(f"lbzip2_tpu_torch.ops.{m}")
+            for m, _ in OPS}
+    kept = {(m, n): getattr(mods[m], n) for m, names in OPS for n in names}
+    for (m, n), fn in kept.items():
+        setattr(mods[m], n, timed(f"{m}.{n}", fn))
+    try:
+        bwt, _ = mods["bwt2"].bwt2_bytes(*(torch.from_numpy(a).to(dev)
+                                           for a in (rows, ns, ms)))
+        mods["chain"].chain_payloads(
+            bwt, ns, cmaps, primary.cpu().numpy().astype(np.int32),
+            np.zeros(ROWS, np.uint32))
+    finally:
+        for (m, n), fn in kept.items():
+            setattr(mods[m], n, fn)
+    total = sum(r["device_ms"] for r in table.values())
+    log(f"device time per op, one (32, {WIDTH}) text batch through "
+        f"bwt2_bytes and chain_payloads, {total:.3f} ms in all:")
+    for name, row in sorted(table.items(),
+                            key=lambda kv: -kv[1]["device_ms"]):
+        log(f"  op {name}: {row['device_ms']:.3f} ms = "
+            f"{row['device_ms'] / total:.3f} of it, {row['calls']} calls, "
+            f"{row['device_intervals']} device intervals")
 
 
 def mtf_timed_cases(text: bytes, dev):
@@ -371,16 +475,84 @@ def code_length_cases(real: list, dev) -> dict:
             for k, (f, a) in cases.items()}
 
 
-def code_lengths_phase(batch, dev):
+def em_case(mtfv, nm, ninuse, dev, lengths="trees"):
+    """Inputs of the EM loop on the card from host arrays, as
+    chain_payloads makes them: (mtfv (B, NP), nm, ninuse, nt, lengths0
+    (B, 6, 259)), all int32.  nt and the initial trees come from each
+    row's flat histogram; lengths="random30" draws every length,
+    the dummy's lane and the dead trees too, from 1..30 instead (a
+    group's cost then passes the 1023 a 10-bit lane holds)."""
+    from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
+                                              num_trees_for)
+
+    B = mtfv.shape[0]
+    nt = np.array([num_trees_for(int(v)) for v in nm], np.int32)
+    lengths0 = np.ones((B, 6, 259), np.int32)
+    for b in range(B):
+        hist = np.bincount(mtfv[b, :nm[b]], minlength=259).astype(np.int64)
+        lengths0[b] = generate_initial_trees(hist, int(nm[b]), int(nt[b]))
+        lengths0[b, :, ninuse[b] + 2:] = 0
+    if lengths == "random30":
+        lengths0 = np.random.default_rng(6).integers(
+            1, 31, lengths0.shape).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                 for a in (mtfv, nm, ninuse, nt, lengths0))
+
+
+def text_symbols(batch, dev):
+    """(mtfv, nm, ninuse) on the host of a BWT batch (bwt, ns, cmaps,
+    primary): the MTF half of the chain, run on the card."""
+    from lbzip2_tpu_torch.ops import chain
+
+    bwt, ns, cmaps, _ = batch
+    mtfv, nm, _, _, _ = chain._chain_mtf2(
+        bwt, torch.from_numpy(ns).to(dev), torch.from_numpy(cmaps).to(dev))
+    return (mtfv.cpu().numpy(), nm.cpu().numpy().astype(np.int32),
+            cmaps.sum(1, dtype=np.int32))
+
+
+def em_plain(args, cf: int, plain_mstep: bool = True):
+    """The plain EM loop on the card on the inputs of em_chain_rows: the
+    per-group histogram, then huffenc._em_chain (plain E-steps, the
+    convergence test read on the host), its M-steps by the plain version
+    or, as the main path ran them before the loop moved to the card,
+    through make_code_lengths_rows."""
+    from lbzip2_tpu_torch.ops import chain, huffenc
+
+    mtfv, nm, ninuse, nt, lengths0 = args
+    hist_g, _, ngroups = chain._group_hist(mtfv, nm, ninuse)
+    wrapper = huffenc.make_code_lengths_rows
+    if plain_mstep:
+        huffenc.make_code_lengths_rows = huffenc._make_code_lengths_rows
+    try:
+        return huffenc._em_chain(hist_g, ngroups, nt, ninuse + 2, lengths0,
+                                 cf)
+    finally:
+        huffenc.make_code_lengths_rows = wrapper
+
+
+def first_mstep_inputs(args):
+    """(freqs (B * 6, 259), as (B * 6,)) int32 on the card: what the
+    first M-step of a batch is given, from one plain E-step."""
+    from lbzip2_tpu_torch.ops import chain
+
+    mtfv, nm, ninuse, nt, lengths0 = args
+    hist_g, _, ngroups = chain._group_hist(mtfv, nm, ninuse)
+    _, freqs = chain._em_estep_hist(hist_g, ngroups, nt, lengths0)
+    return (freqs.reshape(-1, 259).contiguous(),
+            (ninuse + 2).repeat_interleave(6).int())
+
+
+def code_lengths_phase(text_args, dev):
     """Code-length kernel vs its plain version and vs the host C
-    make_code_lengths2; returns the record."""
+    make_code_lengths2; returns the record.  The real inputs are those
+    of every M-step of the text batch's plain EM loop on the card (the
+    main path's own loop runs inside the EM kernels and passes through
+    no Python wrapper)."""
     from lbzip2_tpu_torch import native
     from lbzip2_tpu_torch.ops import huffenc
-    from lbzip2_tpu_torch.ops.chain import chain_payloads
 
-    bwt, ns, cmaps, primary = batch
     real = []  # (freqs (32, 6, 259), as (32,)) of every M-step
-
     wrapper = huffenc.make_code_lengths_rows
 
     def recorder(freqs, as_rows):
@@ -390,16 +562,20 @@ def code_lengths_phase(batch, dev):
 
     huffenc.make_code_lengths_rows = recorder
     try:
-        chain_payloads(bwt, ns, cmaps, primary.cpu().numpy().astype(np.int32),
-                       np.zeros(ROWS, np.uint32))
+        em_plain(text_args, 8, plain_mstep=False)
     finally:
         huffenc.make_code_lengths_rows = wrapper
     assert real, "the text batch ran no M-step"
 
+    def on_card(f, a):
+        """(freqs (B * 6, 259), as (B * 6,)) on the card of one case."""
+        return (torch.from_numpy(f.reshape(-1, huffenc.W)).to(dev),
+                torch.from_numpy(np.repeat(a, 6)).to(dev))
+
+    cases = code_length_cases(real, dev)
     max_err = 0
-    for name, (f, a) in code_length_cases(real, dev).items():
-        rows = torch.from_numpy(f.reshape(-1, huffenc.W)).to(dev)
-        as_rows = torch.from_numpy(np.repeat(a, 6)).to(dev)
+    for name, (f, a) in cases.items():
+        rows, as_rows = on_card(f, a)
         got = huffenc.make_code_lengths_rows(rows, as_rows)
         want = huffenc._make_code_lengths_rows(rows, as_rows)
         torch.cuda.synchronize()
@@ -419,32 +595,22 @@ def code_lengths_phase(batch, dev):
         assert err == 0, f"code_lengths kernel disagrees with plain: {name}"
         assert err_c == 0, f"code_lengths kernel disagrees with C: {name}"
 
-    f, a = real[0]
-    rows = torch.from_numpy(f.reshape(-1, huffenc.W)).to(dev)
-    as_rows = torch.from_numpy(np.repeat(a, 6)).to(dev)
+    a = real[0][1]
+    rows, as_rows = on_card(*real[0])
     ms_k = cuda_ms(lambda: huffenc.make_code_lengths_rows(rows, as_rows), 50)
     ms_p = cuda_ms(lambda: huffenc._make_code_lengths_rows(rows, as_rows), 2)
-    log(f"code_lengths (192, 259) first M-step of a text batch: kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.3f} ms")
-    # the batch's whole entropy chain, the kernel against the plain version
-    idxs = primary.cpu().numpy().astype(np.int32)
-    payloads, stages = {}, {}
-    for which, fn in (("kernel", wrapper),
-                      ("plain", huffenc._make_code_lengths_rows)):
-        huffenc.make_code_lengths_rows = fn
-        try:
-            stages[which] = {}
-            t0 = time.time()
-            payloads[which] = chain_payloads(
-                bwt, ns, cmaps, idxs, np.zeros(ROWS, np.uint32),
-                times=stages[which])
-            stages[which]["total"] = round(time.time() - t0, 3)
-        finally:
-            huffenc.make_code_lengths_rows = wrapper
-        log(f"chain_payloads of the text batch, {len(real)} M-steps, "
-            f"{which} M-step: {json.dumps(stages[which])}")
-    assert payloads["kernel"] == payloads["plain"], \
-        "the batch's payloads differ between the kernel and the plain M-step"
+    w_rows, w_as = on_card(*cases["random_192"])
+    ms_w = cuda_ms(lambda: huffenc.make_code_lengths_rows(w_rows, w_as), 50)
+    # the kernel alone runs shorter than Python takes to call it: its own
+    # device time by the profiler (None when the profiler dropped it)
+    us_k = sum(device_us(lambda: huffenc.make_code_lengths_rows(
+        rows, as_rows)).values()) or None
+    us_w = sum(device_us(lambda: huffenc.make_code_lengths_rows(
+        w_rows, w_as)).values()) or None
+    log(f"code_lengths (192, 259) first M-step of a text batch (alphabets "
+        f"of {int(a.min())} to {int(a.max())}): call {ms_k:.4f} ms, the "
+        f"kernel's device time {us_k} us, plain {ms_p:.3f} ms; random_192 "
+        f"(alphabets of 2 to 258): call {ms_w:.4f} ms, device {us_w} us")
     # a row needs a comparison sort of its `as` leaves, as - 1 merges and
     # one depth and one length for each leaf, whatever the algorithm
     alpha = np.repeat(a, 6).astype(np.int64)
@@ -454,8 +620,150 @@ def code_lengths_phase(batch, dev):
             "source": "lbzip2_tpu_torch/csrc/code_lengths.cu",
             "replaces": "lbzip2_tpu/ops/huffenc.py:52",
             "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p,
+            "plain_ms": ms_p, "random_192_ms": ms_w, "device_us": us_k,
+            "random_192_device_us": us_w,
             **bound(2 * rows.numel() * 4 + as_rows.numel() * 4, ops)}
+
+
+def em_cases(text_h, dev) -> dict:
+    """name -> (inputs of em_chain_rows on the card, cluster_factor).
+    text_h: (mtfv, nm, ninuse) of the 32-row text batch on the host."""
+    mtfv, nm, ninuse = text_h
+    NP = mtfv.shape[1]
+    rng = np.random.default_rng(7)
+
+    def cut(rows, lens):
+        """Text rows cut to lens symbols, the last the end-of-block."""
+        m = np.zeros((len(rows), NP), np.int32)
+        n = np.minimum(np.array(lens, np.int32), nm[rows])
+        for k, (r, ln) in enumerate(zip(rows, n)):
+            m[k, :ln] = mtfv[r, :ln]
+            m[k, ln - 1] = ninuse[r] + 1
+        return m, n, ninuse[rows]
+
+    def synth(specs):
+        """(nm, ninuse) a row: uniform symbols and the end-of-block."""
+        m = np.zeros((len(specs), NP), np.int32)
+        for k, (n, nu) in enumerate(specs):
+            if nu and n > 1:
+                m[k, :n - 1] = rng.integers(0, nu + 1, n - 1)
+            m[k, n - 1] = nu + 1
+        return (m, np.array([s[0] for s in specs], np.int32),
+                np.array([s[1] for s in specs], np.int32))
+
+    whole = np.arange(8)
+    full = int(nm.max())
+    cases = {
+        "text_32_rows": (em_case(mtfv, nm, ninuse, dev), 8),
+        "rows_1": (em_case(mtfv[:1], nm[:1], ninuse[:1], dev), 8),
+        "rows_3": (em_case(mtfv[1:4], nm[1:4], ninuse[1:4], dev), 8),
+        "rows_5": (em_case(mtfv[4:9], nm[4:9], ninuse[4:9], dev), 8),
+        # a tree more past 150, 300, 600, 1200 and 2400 symbols
+        "nt_1_to_6": (em_case(*cut(whole, [100, 151, 301, 601, 1201, 2401,
+                                           150, 2400]), dev), 8),
+        # rows of a few symbols settle at once, the text rows keep moving
+        "one_row_still_changing": (em_case(*cut(whole, [
+            30, full, 51, 120, 49, full, 200, 1]), dev), 8),
+        "cluster_factor_1": (em_case(mtfv, nm, ninuse, dev), 1),
+        "cluster_factor_2": (em_case(mtfv, nm, ninuse, dev), 2),
+        "one_group_rows": (em_case(*cut(whole[:3], [50, 7, 1]), dev), 8),
+        "lengths_to_30_costs_past_1023": (
+            em_case(mtfv, nm, ninuse, dev, "random30"), 8),
+        "as_2_and_258": (em_case(*synth([
+            (1, 0), (2, 0), (NP, 256), (NP - 60, 256), (50, 7), (51, 7),
+            (100, 0), (300_000, 256)]), dev), 8),
+        "as_2_and_258_lengths_to_30": (em_case(*synth([
+            (1, 0), (NP, 256), (700_001, 256), (2, 0)]), dev, "random30"), 8),
+    }
+    return cases
+
+
+def em_phase(text_h, batch, dev):
+    """The EM kernels (em_chain_rows) against the plain loop on the card,
+    tolerance 0 on the selectors of all G groups, the frequencies, the
+    lengths and the iteration count, on every case; the text batch's
+    payloads with the kernels and with the plain loop in their place;
+    times.  Returns the record and the text batch's inputs."""
+    from lbzip2_tpu_torch.ops import chain, huffenc
+
+    cases = em_cases(text_h, dev)
+    max_err, iters_of = 0, {}
+    for name, (args, cf) in cases.items():
+        got = huffenc.em_chain_rows(*args, cf)
+        want = em_plain(args, cf)
+        torch.cuda.synchronize()
+        errs = [max_err_of(g, w.to(dev)) for g, w in zip(got, want)]
+        max_err = max(max_err, *errs)
+        iters_of[name] = int(got[3])
+        log(f"em kernels vs plain loop [{name}] rows {args[0].shape[0]}, "
+            f"cluster_factor {cf}: max_abs_err sel {errs[0]} (all "
+            f"{got[0].shape[1]} groups) freqs {errs[1]} lengths {errs[2]} "
+            f"iters {errs[3]}; {iters_of[name]} E-steps, trees "
+            f"{sorted(set(args[3].tolist()))}, alphabets "
+            f"{int(args[2].min()) + 2} to {int(args[2].max()) + 2}")
+        assert not any(errs), f"the EM kernels disagree with plain: {name}"
+    assert iters_of["cluster_factor_1"] == 1 and \
+        iters_of["cluster_factor_2"] == 2, iters_of
+    assert iters_of["one_row_still_changing"] > 2, iters_of
+    assert sorted(set(cases["nt_1_to_6"][0][3].tolist())) == \
+        [1, 2, 3, 4, 5, 6]
+    costly = cases["lengths_to_30_costs_past_1023"][0]
+    sym = costly[0][:, :50 * 4000].long()
+    cost = torch.gather(costly[4], 2, sym[:, None, :].expand(-1, 6, -1))
+    cost = int(cost.reshape(-1, 6, 4000, 50).sum(3).max())
+    log(f"lengths_to_30_costs_past_1023: the dearest group costs {cost}")
+    assert cost > 1023, "no cost overflows its 10-bit lane"
+
+    # the text batch's whole entropy chain: the kernels, then the plain
+    # loop in their place (its M-steps through the code-length kernel)
+    bwt, ns, cmaps, primary = batch
+    idxs = primary.cpu().numpy().astype(np.int32)
+    wrapper = chain.em_chain_rows
+    payloads, stages = {}, {}
+    for which, fn in (("kernels", wrapper), ("plain_loop", lambda *a: em_plain(
+            a[:5], a[5], plain_mstep=False))):
+        chain.em_chain_rows = fn
+        try:
+            for _ in range(2):  # the second run is warm
+                stages[which] = {}
+                t0 = time.time()
+                payloads[which] = chain.chain_payloads(
+                    bwt, ns, cmaps, idxs, np.zeros(ROWS, np.uint32),
+                    times=stages[which])
+                stages[which]["total"] = round(time.time() - t0, 3)
+        finally:
+            chain.em_chain_rows = wrapper
+        log(f"chain_payloads of the text batch, EM by the {which}: "
+            f"{json.dumps(stages[which])}")
+    assert payloads["kernels"] == payloads["plain_loop"], \
+        "the batch's payloads differ between the EM kernels and the plain loop"
+
+    args, cf = cases["text_32_rows"]
+    ms_k = cuda_ms(lambda: huffenc.em_chain_rows(*args, cf), 20)
+    ms_p = cuda_ms(lambda: em_plain(args, cf), 1)
+    ms_l = cuda_ms(lambda: em_plain(args, cf, plain_mstep=False), 3)
+    us = device_us(lambda: huffenc.em_chain_rows(*args, cf))
+    iters = iters_of["text_32_rows"]
+    log(f"em_chain (32 rows, {int(args[1].sum())} live symbols, {iters} "
+        f"E-steps): kernels {ms_k:.4f} ms, plain loop {ms_p:.3f} ms, plain "
+        f"loop with the M-step kernel {ms_l:.3f} ms; device time of one "
+        f"loop, us: {json.dumps(us)}")
+    # in: the live symbols, the initial trees and the small vectors; out:
+    # sel, freqs, lengths, each once.  Six additions a symbol of a valid
+    # group an executed iteration
+    live = int(args[1].sum())
+    groups = int(((args[1] + 49) // 50).sum())
+    small = sum(a.numel() for a in args[1:4]) * 4
+    nbytes = live * 4 + small + args[4].numel() * 4 * 3 + \
+        args[0].shape[0] * ((args[0].shape[1] + 49) // 50) * 4
+    record = {"name": "em_chain", "route": "cuda",
+              "source": "lbzip2_tpu_torch/csrc/em_chain.cu",
+              "replaces": "lbzip2_tpu/ops/huffenc.py:184",
+              "launches": 0, "max_abs_err": max_err, "ms": ms_k,
+              "plain_ms": ms_p, "plain_loop_mstep_kernel_ms": ms_l,
+              "iters": iters, "kernels_us": us,
+              **bound(nbytes, 6 * groups * 50 * iters)}
+    return record, args
 
 
 def sweep_phase(dev):
@@ -762,7 +1070,14 @@ def ibwt_phase(chain_blob: bytes, dev):
         # of the host shows in a mean: the median of five means of 10
         ms[name] = sorted(cuda_ms(lambda: ibwt.ibwt_rows(*cases[name]), 10)
                           for _ in range(5))[2]
-        us[name] = device_us(lambda: ibwt.ibwt_rows(*cases[name]))
+    # the card's clock moves between two profiles (the same kernel reads
+    # 100 or 130 us), and the shares below compare two of them: three
+    # rounds over the three batches in turns, each kernel's median
+    rounds = [{name: device_us(lambda: ibwt.ibwt_rows(*cases[name]))
+               for name in IBWT_TIMED} for _ in range(3)]
+    for name in IBWT_TIMED:
+        us[name] = {k: sorted(r[name].get(k, 0.0) for r in rounds)[1]
+                    for k in rounds[0][name]}
         log(f"ibwt device time [{name}], us: {json.dumps(us[name])}")
     args = cases["text_8x901120"]
     ms_k = ms["text_8x901120"]
@@ -907,32 +1222,98 @@ def cli_phase(few: bytes) -> None:
 
 
 def kernels_only(seed: int, profiled: bool, dev) -> int:
-    """--kernels: the MTF-rank and inverse-BWT kernels of the package on
-    the path, held against their plain versions (tolerance 0) and timed
-    on phase 3's and phase 9's timed inputs; one JSON line."""
-    from lbzip2_tpu_torch.ops import ibwt, mtf_pallas
+    """--kernels: the MTF-rank, inverse-BWT and code-length kernels and
+    the EM loop of the package on the path, held against their plain
+    versions (tolerance 0) and timed on the smoke's timed inputs; and the
+    peak of device memory over one text batch through chain_payloads.
+    One JSON line.  A checkout from before the EM loop moved to the card
+    has no em_chain_rows: there the loop timed is the one its main path
+    ran, the plain E-steps with the M-step kernel between them."""
+    from lbzip2_tpu_torch.ops import chain, huffenc, ibwt, mtf_pallas
 
     _, text = make_data(seed, text_blocks=ROWS)
-    mtf_cases, (bwt, ns, _, primary) = mtf_timed_cases(text, dev)
+    mtf_cases, batch = mtf_timed_cases(text, dev)
+    bwt, ns, cmaps, primary = batch
     rows = [(bwt[r, :ns[r]].cpu().numpy(), int(primary[r])) for r in range(8)]
     calls = {f"mtf_{name}": (mtf_pallas.mtf_ranks_rows,
                              mtf_pallas.mtf_ranks_plain, a)
              for name, a in mtf_cases.items()}
     calls.update({f"ibwt_{name}": (ibwt.ibwt_rows, ibwt.ibwt_plain, a)
                   for name, a in ibwt_timed_cases(rows, dev).items()})
+    text_args = em_case(*text_symbols(batch, dev), dev)
+    calls["code_lengths_192x259_text"] = (
+        huffenc.make_code_lengths_rows, huffenc._make_code_lengths_rows,
+        first_mstep_inputs(text_args))
+    f, a = code_length_cases([], dev)["random_192"]  # alphabets of 2 to 258
+    calls["code_lengths_192x259_random"] = (
+        huffenc.make_code_lengths_rows, huffenc._make_code_lengths_rows,
+        (torch.from_numpy(f.reshape(-1, 259)).to(dev),
+         torch.from_numpy(np.repeat(a, 6)).to(dev)))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
         got, want = kernel(*a), plain(*a)
         torch.cuda.synchronize()
         res["max_abs_err"][name] = max_err_of(got, want)
-        res["ms"][name] = cuda_ms(lambda: kernel(*a), 10)
+        res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if
+                                  name.startswith("code") else 10)
         if profiled:
             res.setdefault("kernels_us", {})[name] = device_us(
                 lambda: kernel(*a))
     first = ibwt.ibwt_rows(*calls["ibwt_text_8x901120"][2])[0, :BLOCK]
     assert first.cpu().numpy().tobytes() == text[:BLOCK], \
         "the inverse BWT of a text row is not the block"
+    # the EM loop of the text batch, and the batch's whole entropy chain
+    want = em_plain(text_args, 8)
+    if hasattr(huffenc, "em_chain_rows"):
+        res["em_loop"] = "em_chain_rows: the EM kernels"
+
+        def loop():
+            return huffenc.em_chain_rows(*text_args, 8)
+    else:
+        res["em_loop"] = "_em_chain: plain E-steps, the M-step kernel"
+
+        def loop():
+            return em_plain(text_args, 8, plain_mstep=False)
+    got = loop()
+    torch.cuda.synchronize()
+    res["max_abs_err"]["em_text_32_rows"] = max(
+        max_err_of(g, w.to(dev)) for g, w in zip(got, want))
+    res["ms"]["em_text_32_rows"] = cuda_ms(loop, 5)
+    res["em_iters"] = int(got[3])
+    if profiled:
+        res["kernels_us"]["em_text_32_rows"] = device_us(loop, 2)
+    del got, want
+
+    def peak_over(fn) -> int:
+        """Peak of device memory during fn above what was held before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - held
+
+    put = [torch.from_numpy(a).to(dev) for a in (ns, cmaps)]
+    res["peak_bytes"] = {
+        "chain_mtf2": peak_over(lambda: chain._chain_mtf2(bwt, *put)),
+        "em_loop": peak_over(loop)}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    outs = chain._chain_mtf2(bwt, *put)
+    torch.cuda.synchronize()
+    res["chain_mtf2_outputs_bytes"] = torch.cuda.memory_allocated(dev) - held
+    del outs
+    idxs = primary.cpu().numpy().astype(np.int32)
+    stages: dict = {}
+    for _ in range(2):  # the second run is warm
+        t0 = time.time()
+        res["peak_bytes"]["chain_payloads"] = peak_over(
+            lambda: chain.chain_payloads(bwt, ns, cmaps, idxs,
+                                         np.zeros(ROWS, np.uint32),
+                                         times=stages))
+        res["chain_payloads_text_batch_s"] = time.time() - t0
+    res["chain_stages"] = stages
     print(json.dumps(res), flush=True)
     assert not any(res["max_abs_err"].values()), "a kernel disagrees"
     return 0
@@ -942,11 +1323,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--measure", action="store_true",
-                    help="also run the whole stream with the plain M-step "
-                    "and the decode phase under the profiler")
+                    help="also the device time per op of one text batch, "
+                    "the whole stream with the plain EM loop and in the "
+                    "default configuration (host stealing on), and the "
+                    "decode phase under the profiler")
     ap.add_argument("--kernels", action="store_true",
-                    help="only time the MTF-rank and inverse-BWT kernels "
-                    "on the smoke's timed inputs")
+                    help="only time the MTF-rank, inverse-BWT and "
+                    "code-length kernels and the EM loop on the smoke's "
+                    "timed inputs")
     ap.add_argument("--tree", metavar="DIR",
                     help="with --kernels: take the package from the "
                     "checkout at DIR")
@@ -971,7 +1355,8 @@ def main(argv=None) -> int:
         return kernels_only(args.seed, args.profile, torch.device("cuda", 0))
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
-    from lbzip2_tpu_torch.ops import huffenc, mtf_pallas, sort_sweeps
+    from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
+    from lbzip2_tpu_torch.ops import chain, huffenc, mtf_pallas, sort_sweeps
     from lbzip2_tpu_torch.tools import sort_probe
 
     dev = torch.device("cuda", 0)
@@ -998,8 +1383,12 @@ def main(argv=None) -> int:
         f"{time.time() - t0:.1f} s to generate")
 
     record, text_batch = kernel_phase(text, dev)
-    lengths_record = code_lengths_phase(text_batch, dev)
-    del text_batch
+    text_h = text_symbols(text_batch, dev)
+    em_record, text_args = em_phase(text_h, text_batch, dev)
+    lengths_record = code_lengths_phase(text_args, dev)
+    if args.measure:
+        op_table(text, text_batch, dev)
+    del text_batch, text_h, text_args
     sweep_record = sweep_phase(dev)
 
     sort_sweeps.launches = 0
@@ -1014,44 +1403,55 @@ def main(argv=None) -> int:
     cold = encoder.compress(data, 9, device=dev)
     log(f"compress (first run): {time.time() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats(dev)
-    # count the M-steps the engine asks for, and the plain version's
-    # calls: on the card every M-step must be a launch of the kernel
-    msteps = {"wrapper": 0, "plain": 0}
+    # count what the plain loop would run: on the card every chain batch
+    # must go through the EM kernels and none through the plain loop, its
+    # E-step or a stand-alone M-step
+    off_path = {"_em_chain": 0, "_em_estep_hist": 0,
+                "make_code_lengths_rows": 0}
 
     def counted(name, fn):
         def call(*a):
-            msteps[name] += 1
+            off_path[name] += 1
             return fn(*a)
         return call
 
-    wrapper, plain = huffenc.make_code_lengths_rows, \
-        huffenc._make_code_lengths_rows
-    huffenc.make_code_lengths_rows = counted("wrapper", wrapper)
-    huffenc._make_code_lengths_rows = counted("plain", plain)
-    mtf_pallas.launches = huffenc.launches = 0
+    plain_fns = {"_em_chain": (huffenc, huffenc._em_chain),
+                 "_em_estep_hist": (chain, chain._em_estep_hist),
+                 "make_code_lengths_rows": (
+                     huffenc, huffenc.make_code_lengths_rows)}
+    for name, (mod, fn) in plain_fns.items():
+        setattr(mod, name, counted(name, fn))
+    mtf_pallas.launches = huffenc.launches = huffenc.em_launches = 0
     t0 = time.time()
     out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
-    launches, em_launches = mtf_pallas.launches, huffenc.launches
-    huffenc.make_code_lengths_rows = wrapper
-    huffenc._make_code_lengths_rows = plain
+    launches, mstep_launches, em_launches = \
+        mtf_pallas.launches, huffenc.launches, huffenc.em_launches
+    for name, (mod, fn) in plain_fns.items():
+        setattr(mod, name, fn)
     stats = encoder.last_stats
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"compress (warm run): {dt:.3f} s = {len(data) / dt / 1e6:.3f} "
         f"MB/s, {len(out)} bytes out, peak device memory "
-        f"{peak / 2**30:.2f} GiB, mtf launches {launches}, code_lengths "
-        f"launches {em_launches} for {msteps['wrapper']} M-steps "
-        f"({msteps['plain']} plain)")
+        f"{peak / 2**30:.2f} GiB, mtf launches {launches}, EM loops on the "
+        f"card {em_launches} for {len(stats['batch_trace'])} batches, "
+        f"{mstep_launches} M-step launches among them, off the kernels "
+        f"{json.dumps(off_path)}")
 
     def log_batches(stats):
         for i, tele in enumerate(stats["batch_trace"]):
-            log(f"  batch {i}: rows {tele['rows']} prep {tele['prep_s']} s "
+            log(f"  batch {i}: shape {tele['shape']} prep {tele['prep_s']} s "
                 f"dispatch {tele['dispatch_s']} s ready {tele['ready_s']} s "
                 f"chain_stages {json.dumps(tele.get('chain_stages'))}")
 
     log_batches(stats)
-    assert em_launches == msteps["wrapper"] > 0 and msteps["plain"] == 0, \
-        f"M-steps off the kernel: {msteps}, {em_launches} launches"
+    assert em_launches == len(stats["batch_trace"]) > 0 and \
+        mstep_launches == (CLUSTER_FACTOR - 1) * em_launches and \
+        not any(off_path.values()), \
+        f"chain batches off the EM kernels: {em_launches} loops, {off_path}"
+    assert all(t["shape"][0] == t["rows"] for t in stats["batch_trace"]) and \
+        sum(t["rows"] for t in stats["batch_trace"]) == eligible, \
+        "a batch shipped rows it did not hold"
 
     t0 = time.time()
     ref = host_reference(data)
@@ -1070,17 +1470,35 @@ def main(argv=None) -> int:
         data, 9, device=dev))
     assert again == ref, "profiled compress differs"
     if args.measure:
-        # the same call with the M-step's plain version in the kernel's place
-        huffenc.make_code_lengths_rows = huffenc._make_code_lengths_rows
+        # the same call with the plain loop (its M-steps through the
+        # code-length kernel, as before the loop moved to the card) in
+        # the EM kernels' place
+        wrapper = chain.em_chain_rows
+        chain.em_chain_rows = lambda *a: em_plain(a[:5], a[5],
+                                                  plain_mstep=False)
         t0 = time.time()
         before = encoder.compress(data, 9, device=dev)
         dt_plain = time.time() - t0
-        huffenc.make_code_lengths_rows = wrapper
-        assert before == ref, "compress with the plain M-step differs"
-        log(f"compress with the plain M-step: {dt_plain:.3f} s = "
+        chain.em_chain_rows = wrapper
+        assert before == ref, "compress with the plain EM loop differs"
+        log(f"compress with the plain EM loop: {dt_plain:.3f} s = "
             f"{len(data) / dt_plain / 1e6:.3f} MB/s against {dt:.3f} s = "
-            f"{len(data) / dt / 1e6:.3f} MB/s with the kernel")
+            f"{len(data) / dt / 1e6:.3f} MB/s with the EM kernels")
         log_batches(encoder.last_stats)
+        # the shipped default: host stealing and steal-back on
+        encoder._HOST_STEAL = encoder._STEALBACK = True
+        for turn in range(2):
+            t0 = time.time()
+            shipped = encoder.compress(data, 9, device=dev)
+            dt_def = time.time() - t0
+            st = encoder.last_stats
+            assert shipped == ref, "compress with host stealing on differs"
+            log(f"compress, default configuration (host stealing on), turn "
+                f"{turn}: {dt_def:.3f} s = {len(data) / dt_def / 1e6:.3f} "
+                f"MB/s; device {st['device_blocks']} blocks, host "
+                f"{st['host_blocks']}, stale rows {st['stale_rows']}")
+            log_batches(st)
+        encoder._HOST_STEAL = encoder._STEALBACK = False
 
     tok = token_phase(data, eligible, ref)
     log(f"compress warm, {len(data)} bytes: token mode {tok['s']:.3f} s = "
@@ -1102,9 +1520,10 @@ def main(argv=None) -> int:
     cli_phase(data[:3 * BLOCK])
 
     record["launches"] = launches
-    lengths_record["launches"] = em_launches
+    lengths_record["launches"] = mstep_launches
+    em_record["launches"] = em_launches
     print(json.dumps({"kernels": [record, sweep_record, huff_record,
-                                  ibwt_record, lengths_record]}))
+                                  ibwt_record, lengths_record, em_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

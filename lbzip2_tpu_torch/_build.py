@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC``
 into ``build/lbzip2_tpu_torch/lib<name>.so`` beside the package (rebuilt
-when the source is newer) and loaded with ctypes, at first use or by
+when the source or any header ``csrc/*.cuh`` is newer: the sources
+include them by name) and loaded with ctypes, at first use or by
 ``build`` ahead of it, which starts one nvcc per source at once.  A
 missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -49,10 +50,13 @@ def build(names=None) -> None:
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     with _lock:
+        headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                      default=0.0)
         todo = []
         for name in names:
             src, so = _paths(name)
-            if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+            if not so.exists() or \
+                    so.stat().st_mtime < max(src.stat().st_mtime, headers):
                 todo.append((name, src, so))
         if not todo:
             return

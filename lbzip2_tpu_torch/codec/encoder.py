@@ -2,11 +2,12 @@
 device.  Counterpart of lbzip2_tpu/codec/encoder.py.
 
 Scheduling is the lbzip2 work pool over heterogeneous engines: a device
-engine groups blocks into fixed-shape (B, N) batches with several
-batches in flight; host workers run the C entropy stage for finished
-device BWTs and, whenever no entropy work is queued, steal whole blocks
-from the tail of the queue for host-side encode.  The device takes
-blocks from the head, the host from the tail; they meet in the middle.
+engine groups blocks into (rows, N) batches of the rows it claimed, with
+several batches in flight; host workers run the C entropy stage for
+finished device BWTs and, whenever no entropy work is queued, steal
+whole blocks from the tail of the queue for host-side encode.  The
+device takes blocks from the head, the host from the tail; they meet in
+the middle.
 Device-claimed blocks stay stealable: when the host would otherwise
 idle it steals claimed blocks back; whichever engine finishes a block
 first wins and the loser's late duplicate is dropped, so the hybrid
@@ -19,14 +20,14 @@ The device engine, in both modes (``_DEVICE_CHAIN``, set from
   chain mode (default):
     dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_bytes
                      -> event recorded after dispatch
-    fetch thread:    wait on the event -> ops/chain.chain_payloads
-                     (MTF kernel, RLE2, EM, pack on the device; headers
-                     and splice on the host)
+    fetch thread:    block on the event -> ops/chain.chain_payloads
+                     (MTF kernel, RLE2, the EM kernels, pack on the
+                     device; headers and splice on the host)
   token mode (LBZ2_DEVICE_CHAIN=0):
     dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_tokens
                      -> copies of tokens, run counts and primary into
                      pinned host memory -> event recorded after them
-    fetch thread:    wait on the event -> run tokens (or, for a row over
+    fetch thread:    block on the event -> run tokens (or, for a row over
                      the token capacity, its raw bytes) to the host
                      workers' C entropy coder
 
@@ -57,15 +58,14 @@ from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens
 from lbzip2_tpu_torch.ops.chain import chain_payloads
 from lbzip2_tpu_torch.ref import rle1
 
-# Static device shape buckets: one production bucket (covers
+# Device row widths: one production bucket (covers
 # MAX_BLOCK_SIZE with ~0.1% padding) and one tiny bucket so CPU tests
 # exercise the device path cheaply.  Mid-size blocks (level < 9, stream
 # tails) go to the host engine, which handles them at full speed anyway.
 _BUCKETS = (8192, 901120)
 _MID_CUTOFF = 262144  # blocks in (8192, _MID_CUTOFF] -> host engine
 
-# Device-batch rows per dispatch; short batches are padded with copies
-# of row 0.
+# Most rows a device batch holds; a batch ships the rows it has.
 _BATCH = int(os.environ.get("LBZ2_DEVICE_BATCH", "32"))
 
 # Batches kept in flight on the device queue simultaneously.
@@ -144,6 +144,9 @@ class _InflightGate:
 
 
 _GATE = _InflightGate()
+_WAKE_S = 0.25   # longest a waiting dispatch thread goes without
+                 # re-reading abandoned / complete / error (each of
+                 # which also signals it)
 _JOIN_S = 120.0  # bound on joining a finished pool's threads (one
                  # chain-mode batch's EM loop has taken 11 s on the H100)
 
@@ -258,6 +261,9 @@ class _TorchPool:
         self.lat_ema = 0.0     # claim->deliver latency estimate (s)
         self.fetch_q: queue.Queue = queue.Queue()
         self.fetch_pending = 0  # dispatched batches not yet fetched
+        # the fetch worker signals every finished batch here; fail() and
+        # the end of run() signal too, so the dispatch thread never naps
+        self.fetch_cv = threading.Condition(self.q_lock)
         self.stats = {"device_blocks": 0, "host_blocks": 0,
                       "periodic_blocks": 0, "stale_rows": 0,
                       "host_idle_s": 0.0, "device_batches": [],
@@ -360,6 +366,11 @@ class _TorchPool:
             if self.error is None:
                 self.error = exc
             self.res_cv.notify_all()
+        self._wake_dispatch()
+
+    def _wake_dispatch(self):
+        with self.fetch_cv:
+            self.fetch_cv.notify_all()
 
     # --- device engine ----------------------------------------------------
     def device_loop(self):
@@ -381,8 +392,9 @@ class _TorchPool:
 
     def _device_pipeline(self):
         """Claim, prep, upload and dispatch batches; the fetch worker
-        finishes them in order.  Depth 1 until the first batch completes or warm_device()
-        ran, then up to _INFLIGHT batches in flight."""
+        finishes them in order.  Depth 1 until the first batch
+        completes or warm_device() ran, then up to _INFLIGHT batches in
+        flight."""
         _GATE.wait_idle()  # don't queue behind a previous pool's tail
         self._fetcher = threading.Thread(target=self._fetch_worker,
                                          name="lbz2-fetch", daemon=True)
@@ -393,9 +405,10 @@ class _TorchPool:
                     break
                 cap = _INFLIGHT \
                     if (self.stats["device_batches"] or _warmed) else 1
-                if self.fetch_pending >= cap:
-                    time.sleep(0.005)
-                    continue
+                with self.fetch_cv:
+                    if self.fetch_pending >= cap:
+                        self.fetch_cv.wait(timeout=_WAKE_S)
+                        continue
                 ids = self.take_head(_BATCH)
                 if not ids:
                     break  # the drain below keeps the sentinel last
@@ -424,9 +437,10 @@ class _TorchPool:
             # drain: the fetch worker finishes in the background; stop
             # early when the stream completes, the watchdog fires, or the
             # fetch worker failed (its error is the pool's result)
-            while self.fetch_pending > 0 and self.error is None and \
-                    not (self.abandoned or self.complete):
-                time.sleep(0.05)
+            with self.fetch_cv:
+                while self.fetch_pending > 0 and self.error is None and \
+                        not (self.abandoned or self.complete):
+                    self.fetch_cv.wait(timeout=_WAKE_S)
         finally:
             if self.abandoned or self.error is not None:
                 self._drain_fetch_q()
@@ -443,8 +457,14 @@ class _TorchPool:
             if item is None:  # the end of the queue
                 return
             _GATE.dec(item[-1])
-            with self.q_lock:
-                self.fetch_pending -= 1
+            self._fetched()
+
+    def _fetched(self):
+        """One dispatched batch is off the fetch queue: wake the
+        dispatch thread (its in-flight cap, its drain wait)."""
+        with self.fetch_cv:
+            self.fetch_pending -= 1
+            self.fetch_cv.notify_all()
 
     def _fetch_worker(self):
         while True:
@@ -468,8 +488,7 @@ class _TorchPool:
                 return
             finally:
                 _GATE.dec(item[-1])
-                with self.q_lock:
-                    self.fetch_pending -= 1
+                self._fetched()
 
     @staticmethod
     def _wait_ready(ev):
@@ -514,12 +533,6 @@ class _TorchPool:
         crcs = np.array(
             [(native.crc32_block(self.buf[s.start:s.end]) ^ 0xFFFFFFFF)
              & 0xFFFFFFFF for s in spans], np.uint32)
-        B = bwt_dev.shape[0]
-        if B > len(spans):  # pad rows replay row 0
-            pad = B - len(spans)
-            ns = np.concatenate([ns, np.repeat(ns[:1], pad)])
-            cmaps = np.concatenate([cmaps, np.repeat(cmaps[:1], pad, 0)])
-            crcs = np.concatenate([crcs, np.repeat(crcs[:1], pad)])
         stage_times: dict = {}
         payloads = chain_payloads(bwt_dev, ns, cmaps,
                                   primary.cpu().numpy().astype(np.int32),
@@ -553,8 +566,9 @@ class _TorchPool:
 
 
     def _build_batch(self, ids):
-        """Lyndon-prep ids into one padded (rows, bucket) batch;
-        periodic and mid-size blocks route to the host immediately.
+        """Lyndon-prep ids into one (rows, bucket) batch of the rows
+        the device keeps, no pad row; periodic and mid-size blocks route
+        to the host immediately.
 
         The least rotation is written straight into the batch row
         (lyndon_prep's out buffer): no second copy of each 0.9 MB
@@ -573,14 +587,9 @@ class _TorchPool:
             bucket = max(bucket, bucket_i)
         if not eligible:
             return None
-        # one row count per bucket: the production bucket always ships
-        # full-width batches (short end-of-stream claims ride as pad
-        # rows); only the tiny CPU-test bucket keeps a cheap 8-row shape
-        nrows = 8 if (len(eligible) <= 8 and bucket == _BUCKETS[0]) \
-            else _BATCH
-        batch = np.zeros((nrows, bucket), np.uint8)
-        ns = np.empty(nrows, np.int32)
-        ms = np.empty(nrows, np.int32)
+        batch = np.zeros((len(eligible), bucket), np.uint8)
+        ns = np.empty(len(eligible), np.int32)
+        ms = np.empty(len(eligible), np.int32)
         kept = []
         row = 0
         for i, span in eligible:
@@ -597,12 +606,9 @@ class _TorchPool:
             row += 1
         if not kept:
             return None
-        for r in range(row, nrows):
-            # pad rows replay row 0 (resolve identically)
-            batch[r] = batch[0]
-            ns[r] = ns[0]
-            ms[r] = ms[0]
-        tele = {"rows": len(kept), "shape": [nrows, bucket],
+        # rows a periodic block gave back stay behind: ship the live ones
+        batch, ns, ms = batch[:row], ns[:row], ms[:row]
+        tele = {"rows": row, "shape": [row, bucket],
                 "prep_s": round(time.time() - t0, 3),
                 "t": round(time.time() - self.stats["t0"], 2)}
         return ([i for i, _ in kept], [span for _, span in kept],
@@ -733,6 +739,7 @@ class _TorchPool:
                 yield payload
             self.complete = True
         finally:
+            self._wake_dispatch()
             if not self.abandoned:
                 self._join_threads()
         if self.error is not None:
@@ -781,9 +788,11 @@ def warm_device(rows=(_BATCH,), bucket: int = _BUCKETS[-1],
                 device: str | torch.device = "cuda") -> float:
     """Run the device engine of the mode in force (``_DEVICE_CHAIN``)
     once per (rows, bucket) shape on tiny Lyndon rows: the whole chain
-    (building the CUDA kernel), or the token BWT and its copies to
+    (building the CUDA kernels), or the token BWT and its copies to
     pinned memory.  Warms the allocator and the math libraries outside a
-    timed stream.  Returns seconds spent."""
+    timed stream; a stream ships batches of 1 to ``_BATCH`` rows, and no
+    shape needs compiling, so the widest batch warms the most memory.
+    Returns seconds spent."""
     global _warmed
     dev = resolve(device)
     t0 = time.time()

@@ -1,4 +1,4 @@
-"""Explicit device resolution and event polling.
+"""Explicit device resolution and event waits.
 
 There is no automatic choice: ``"cuda"`` without a usable CUDA device
 raises, so a run can never silently land on the CPU.  Only the tests
@@ -6,8 +6,6 @@ pass ``"cpu"``.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -50,20 +48,20 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def record_event(dev: torch.device) -> torch.cuda.Event | None:
-    """Event recorded on the current stream of a CUDA device (None on
-    the CPU, where every op has already run)."""
+    """Blocking event recorded on the current stream of a CUDA device
+    (None on the CPU, where every op has already run)."""
     if dev.type != "cuda":
         return None
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(blocking=True)
     ev.record(torch.cuda.current_stream(dev))
     return ev
 
 
 def wait_event(ev: torch.cuda.Event | None) -> None:
-    """Poll ``ev`` with exponential backoff (50 ms up to 0.5 s, as the
-    JAX engine polls ``is_ready``) instead of a blocking synchronize,
-    so a waiting host thread does not spin a core."""
-    nap = 0.05
-    while ev is not None and not ev.query():
-        time.sleep(nap)
-        nap = min(0.5, nap * 1.6)
+    """Block the calling thread until ``ev`` is done.  ``record_event``
+    makes blocking events, so the wait sleeps in the CUDA runtime and
+    spins no core, and it returns when the work does: there is no
+    polling interval to tune.  The thread holds the GIL no longer than
+    the call into the runtime takes; the caller holds no lock."""
+    if ev is not None:
+        ev.synchronize()

@@ -20,7 +20,7 @@ from lbzip2_tpu_torch.core.constants import (GROUP_SIZE, MAX_ALPHA_SIZE,
                                              MAX_TREES)
 from lbzip2_tpu_torch.device import upload
 from lbzip2_tpu_torch.interop import M32
-from lbzip2_tpu_torch.ops.huffenc import _em_chain
+from lbzip2_tpu_torch.ops.huffenc import em_chain_rows
 from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
                                           num_trees_for)
 from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
@@ -66,13 +66,51 @@ def _group_hist(mtfv: torch.Tensor, nm: torch.Tensor,
     return hist.float(), groups, ngroups.int()
 
 
+_FLAT_WAYS = 32
+
+
+def _flat_hist(mtfv: torch.Tensor, nm: torch.Tensor,
+               ninuse: torch.Tensor) -> torch.Tensor:
+    """Flat symbol histogram (B, WIDTH) int32 of the padded groups,
+    counted from the symbols: the values of ``_group_hist(...)[0].sum(1)``
+    (the pad positions at lane ``as``, the clamp to lane 258) without
+    the per-group tensor."""
+    B, NP = mtfv.shape
+    dev = mtfv.device
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    pos = torch.arange(NP, dtype=torch.int32, device=dev)[None]
+    live = pos < nm[:, None]
+    # _FLAT_WAYS counts a row, neighbouring positions in different ones
+    # (a text row is mostly two symbols: one count a row would have a
+    # card's atomics queue on two addresses); a row's dead positions go
+    # to a bin of their own past its lanes
+    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    way = rows * _FLAT_WAYS + pos % _FLAT_WAYS
+    idx = torch.where(live, mtfv.clamp(max=WIDTH - 1), WIDTH) + \
+        way * (WIDTH + 1)
+    hist = torch.bincount(idx.reshape(-1),
+                          minlength=B * _FLAT_WAYS * (WIDTH + 1))
+    hist = hist.reshape(B, _FLAT_WAYS, WIDTH + 1).sum(1)[:, :WIDTH].int()
+    pads = (G * GROUP_SIZE - live.sum(1)).int()
+    hist.scatter_add_(1, (ninuse + 2).clamp(max=WIDTH - 1).long()[:, None],
+                      pads[:, None])
+    return hist
+
+
 def _chain_mtf2(bwt: torch.Tensor, ns: torch.Tensor, cmaps: torch.Tensor):
     """BWT bytes -> (mtfv (B, N+1), nm (B,), hist (B, WIDTH) int32 flat
-    histogram, hist_g (B, G, WIDTH) float32, ngroups (B,))."""
+    histogram, hist_g (B, G, WIDTH) float32, ngroups (B,)).  On a CUDA
+    device hist_g is None: the EM kernels read the symbols themselves
+    (``ops/huffenc.em_chain_rows``) and the flat histogram is counted
+    directly, so the per-group tensor, five times the symbols it is made
+    from, is never built there."""
     syms = _compact_syms(bwt, cmaps)
     ninuse = cmaps.int().sum(1, dtype=torch.int32)
     ranks = mtf_ranks_rows(syms, ns)
     mtfv, nm = _rle2_batch(ranks, ns, ninuse)
+    if mtfv.device.type == "cuda":
+        ngroups = ((nm + GROUP_SIZE - 1) // GROUP_SIZE).int()
+        return mtfv, nm, _flat_hist(mtfv, nm, ninuse), None, ngroups
     hist_g, _, ngroups = _group_hist(mtfv, nm, ninuse)
     hist = hist_g.sum(1).int()  # sums < 2^24: exact in float32
     return mtfv, nm, hist, hist_g, ngroups
@@ -219,7 +257,9 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
 
     Device: MTF + RLE2 + EM + group bit-pack.  Host (C): initial trees,
     final code assignment and headers, stream splice.  Each download
-    (``.cpu()``) is the wait on the device."""
+    (``.cpu()``) is the wait on the device; the EM loop runs between two
+    of them with nothing read on the host (``times["em_iters"]`` is its
+    count of E-steps, downloaded with its outputs)."""
 
     def _mark(key, t0):
         if times is not None:
@@ -235,8 +275,7 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
     B, N = bwt_dev.shape
     ns = np.asarray(ns, np.int32)
     cmaps_u8 = np.ascontiguousarray(cmaps, np.uint8)
-    mtfv, nm, hist, hist_g, ngroups_dev = _chain_mtf2(
-        bwt_dev, _put(ns), _put(cmaps_u8))
+    mtfv, nm, hist, _, _ = _chain_mtf2(bwt_dev, _put(ns), _put(cmaps_u8))
     t0 = _mark("dispatch_mtf", t0)
     nm_h = nm.cpu().numpy()
     hist_h = hist.cpu().numpy()
@@ -258,10 +297,12 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
     ninuse_dev = _put(ninuse)
     nt_dev = _put(nt_arr)
     t0 = _mark("init_trees", t0)
-    sel, freqs, lengths_dev, _ = _em_chain(
-        hist_g, ngroups_dev, nt_dev, _put(as_arr.astype(np.int32)),
+    sel, freqs, lengths_dev, iters = em_chain_rows(
+        mtfv.contiguous(), nm.int(), ninuse_dev, nt_dev,
         _put(lengths.astype(np.int32)), cluster_factor)
     t0 = _mark("dispatch_em", t0)
+    if times is not None:
+        times["em_iters"] = int(iters.cpu())
     freqs_h = freqs.cpu().numpy().astype(np.uint32)
     lengths = np.ascontiguousarray(
         lengths_dev.cpu().numpy(), np.uint8).reshape(B, MAX_TREES, WIDTH)

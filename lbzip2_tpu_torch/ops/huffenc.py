@@ -8,11 +8,19 @@ lengths come from the two-queue merge preferring leaves on ties and are
 re-assigned by rank profile.
 
 ``make_code_lengths_rows`` runs the hand-written kernel
-``csrc/code_lengths.cu`` (one CTA per row, everything in shared memory)
-for a CUDA tensor, and the plain PyTorch version for a CPU tensor.  The
+``csrc/code_lengths.cu`` (a warp a tree, ``csrc/code_lengths.cuh``) for
+a CUDA tensor, and the plain PyTorch version for a CPU tensor.  The
 plain version is the JAX op step for step: a merge of 257 masked steps
 vectorised across the B * 6 rows of a batch, a few dozen small ops a
 step, which is why it is not the card's path.
+
+``em_chain_rows`` is the whole EM loop of a batch.  For CUDA tensors it
+enqueues the kernels of ``csrc/em_chain.cu``: an E-step that reads the
+symbols themselves and an M-step that runs the code-length device
+function, ``cluster_factor`` rounds with the convergence test in device
+memory, so the host reads nothing inside the loop.  For CPU tensors it
+runs the plain loop ``_em_chain`` over the per-group histogram, the JAX
+ops step for step.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import ctypes
 import torch
 
 from lbzip2_tpu_torch import _build
-from lbzip2_tpu_torch.core.constants import MAX_ALPHA_SIZE, MAX_TREES
+from lbzip2_tpu_torch.core.constants import (GROUP_SIZE, MAX_ALPHA_SIZE,
+                                             MAX_TREES)
 
 MAX_ALPHA = 258
 W = MAX_ALPHA_SIZE + 1          # 259 lanes (symbols 0..257 + dummy)
@@ -32,7 +41,11 @@ _NN = _NLEAF + _NMERGE          # node slots: sorted leaves, then merges
 _HLIM = 30                      # MAX_HUFF_LEN2 profile clamp
 _INF32 = 0x7FFFFFFF
 
-launches = 0  # CUDA kernel launches made by make_code_lengths_rows
+# launches of a kernel that runs the code-length device function: the
+# stand-alone kernel by make_code_lengths_rows, and the M-step kernels
+# that em_chain_rows enqueues (cluster_factor - 1 a loop)
+launches = 0
+em_launches = 0  # EM loops that em_chain_rows enqueued on a card
 
 
 def _lt(fa, ta, fb, tb):
@@ -209,3 +222,76 @@ def _em_chain(hist_g: torch.Tensor, ngroups: torch.Tensor,
                               lengths)
         prev_sel = sel
     return sel, freqs, lengths, torch.tensor(it, dtype=torch.int32)
+
+
+def _em_lib():
+    fn = _build.load("em_chain").lbz2t_em_chain
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def em_chain_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
+                  ninuse: torch.Tensor, nt: torch.Tensor,
+                  lengths0: torch.Tensor, cluster_factor: int):
+    """Enqueue the EM loop's kernels on the current stream (no
+    synchronize, nothing read on the host); see ``em_chain_rows``."""
+    global launches, em_launches
+    dev = mtfv.device
+    small = (nm, ninuse, nt)
+    if dev.type != "cuda" or any(a.device != dev
+                                 for a in small + (lengths0,)):
+        raise ValueError("em_chain_cuda needs every input on one CUDA "
+                         "device")
+    if any(a.dtype != torch.int32 or not a.is_contiguous()
+           for a in small + (mtfv, lengths0)):
+        raise TypeError("em_chain_cuda inputs must be contiguous int32")
+    if mtfv.dim() != 2 or mtfv.shape[0] < 1 or mtfv.shape[1] < 1:
+        raise ValueError("em_chain_cuda needs mtfv (B, NP) with B, NP >= 1")
+    B, NP = mtfv.shape
+    if any(a.shape != (B,) for a in small) or \
+            lengths0.shape != (B, MAX_TREES, W):
+        raise ValueError("bad em_chain shapes")
+    if cluster_factor < 1:
+        raise ValueError("cluster_factor must be at least 1")
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    lengths = lengths0.clone()
+    sel = torch.empty((B, G), dtype=torch.int32, device=dev)
+    freqs = torch.zeros((B, MAX_TREES, W), dtype=torch.int32, device=dev)
+    ctl = torch.zeros(2 + cluster_factor, dtype=torch.int32, device=dev)
+    err = _em_lib()(mtfv.data_ptr(), nm.data_ptr(), ninuse.data_ptr(),
+                    nt.data_ptr(), lengths.data_ptr(), sel.data_ptr(),
+                    freqs.data_ptr(), ctl.data_ptr(), B, NP, G,
+                    cluster_factor,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"em_chain kernel launch failed: cudaError {err}")
+    em_launches += 1
+    launches += cluster_factor - 1
+    return sel, freqs, lengths, ctl[1]
+
+
+def em_chain_rows(mtfv: torch.Tensor, nm: torch.Tensor,
+                  ninuse: torch.Tensor, nt: torch.Tensor,
+                  lengths0: torch.Tensor, cluster_factor: int):
+    """The EM loop of one batch from its symbols: the CUDA kernels for
+    CUDA tensors, the plain loop for CPU tensors.
+
+    mtfv (B, NP) int32 MTF/RLE2 symbols, nm (B,) their counts, ninuse
+    (B,) used byte values (the alphabet is ninuse + 2, which is also the
+    dummy symbol of the positions at and past nm), nt (B,) trees in use,
+    lengths0 (B, 6, W) int32 initial trees.  Returns what ``_em_chain``
+    returns on the histogram of the same symbols: (selectors (B, G)
+    int32 of all G = ceil(NP / 50) groups, freqs (B, 6, W) int32,
+    lengths (B, 6, W) int32, iters int32 scalar on the inputs' device)."""
+    if mtfv.device.type == "cuda":
+        return em_chain_cuda(mtfv, nm, ninuse, nt, lengths0, cluster_factor)
+    if mtfv.device.type == "cpu":
+        from lbzip2_tpu_torch.ops.chain import _group_hist
+
+        hist_g, _, ngroups = _group_hist(mtfv, nm, ninuse)
+        return _em_chain(hist_g, ngroups, nt, ninuse + 2, lengths0,
+                         cluster_factor)
+    raise ValueError(f"unsupported device {mtfv.device}")

@@ -455,6 +455,10 @@ def decompress_parallel(data: bytes, n_workers: int | None = None,
     return b"".join(out_parts)
 
 
+_MAGIC_BYTES = 6  # a magic that a scan up to byte E could not see whole
+                  # starts after bit 8 * E - 48, so in byte E - 6 or later
+
+
 class _StreamBuf:
     """Sliding input window with absolute bit addressing."""
 
@@ -464,6 +468,8 @@ class _StreamBuf:
         self.base = 0  # absolute byte offset of buf[0]
         self.buf = b""
         self.eof = False
+        self.scanned = 0  # absolute byte offset: scan_new has reported
+                          # every block magic that ends at or before it
         self._lock = threading.Lock()
 
     def extend(self) -> bool:
@@ -492,6 +498,28 @@ class _StreamBuf:
             if keep_from > self.chunk_size:
                 self.buf = self.buf[keep_from:]
                 self.base += keep_from
+
+    def scan_new(self) -> list[int]:
+        """Absolute bit offsets, ascending, of the block magics that end
+        in the bytes that arrived since the last call: each byte of the
+        stream is scanned once as new and at most once more as the
+        overlap a magic needs across the seam.  A call that finds fewer
+        than ``_MAGIC_BYTES`` new bytes waits for more (a second short
+        call would scan the same overlap a third time), except at the
+        end of the input.  The mark is an absolute offset, so it moves
+        with the window when ``drop_before`` cuts it; the overlap is
+        cut to what the window still holds (anything before it lies
+        behind the parser)."""
+        arr, base = self.snapshot()
+        end = base + arr.size
+        fresh = end - self.scanned
+        if fresh <= 0 or (fresh < _MAGIC_BYTES and not self.eof):
+            return []
+        start = max(self.scanned - _MAGIC_BYTES, base)
+        seen = self.scanned * 8 - 48  # the last start bit of an old magic
+        self.scanned = end
+        found = scan_magic_bits(arr[start - base:]) + start * 8
+        return [int(p) for p in found if p > seen]
 
     def arr(self) -> np.ndarray:
         return np.frombuffer(self.buf, np.uint8)
@@ -620,16 +648,22 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
 
     with ThreadPoolExecutor(max_workers=n_workers) as pool:
         pending: dict[int, object] = {}
+        found: list[int] = []  # candidates ahead of the parser, ascending
 
         def refresh_speculation():
-            # scan current window for candidates ahead of the parser
-            arr = sb.arr()
-            local = scan_magic_bits(arr)
-            for lp in local:
-                ap = int(lp) + sb.base * 8
-                if ap > pos and ap not in pending and len(pending) < \
-                        4 * n_workers:
+            # the window's new bytes are scanned once; the candidates
+            # found stay until the parser has passed them or a worker
+            # has taken them
+            found.extend(sb.scan_new())
+            keep = []
+            for ap in found:
+                if ap <= pos or ap in pending:
+                    continue
+                if len(pending) < 4 * n_workers:
                     pending[ap] = pool.submit(decode_at, ap, True)
+                else:
+                    keep.append(ap)
+            found[:] = keep
 
         while True:
             try:

@@ -48,6 +48,22 @@ def test_build_compiles_every_stale_source_once(tree):
     assert _build.build_log == {}
 
 
+def test_newer_header_makes_every_library_stale(tree):
+    """A source includes the headers beside it: a header touched after
+    the build rebuilds the libraries, an older one does not."""
+    csrc, build = tree
+    header = csrc / "shared.cuh"
+    header.write_text("// device functions\n")
+    _build.build()
+    _build.build_log.clear()
+    _build.build()
+    assert _build.build_log == {}
+    newest = max(p.stat().st_mtime for p in build.iterdir())
+    os.utime(header, (newest + 5, newest + 5))
+    _build.build()
+    assert sorted(_build.build_log) == ["one", "two"]
+
+
 def test_build_failure_raises(tree):
     csrc, _ = tree
     (csrc / "bad.cu").write_text("// does not compile\n")
