@@ -2,15 +2,23 @@
 
     python3 chip_smoke.py [--seed S] [--measure]
     python3 chip_smoke.py --kernels [--tree DIR] [--profile]
+    python3 chip_smoke.py --measure --tree DIR
 
-The second form runs no phase: it builds the MTF-rank, inverse-BWT and
-code-length kernels and the EM loop of this checkout (or of the checkout
-at DIR, whose wrappers have the same signatures: run both in turns
-inside one call to compare two trees), holds them against their plain
-versions on the timed inputs of phases 3, 9, 12 and 13, and prints
-their CUDA-event times, with --profile each CUDA kernel's device time
-too, and the peak of device memory over one text batch through
-chain_payloads, as one JSON line.
+The second form runs no phase: it builds the six kernels of this
+checkout (or of the checkout at DIR, whose wrappers have the same
+signatures: run both in turns inside one call to compare two trees),
+holds them against their plain versions on the timed inputs of phases
+3, 4, 8, 9, 12 and 13, and prints their CUDA-event times, with
+--profile each CUDA kernel's device time too, the sweep loop's SASS,
+and the peak of device memory over one text batch through
+chain_payloads, as one JSON line.  The third runs no phase either: it
+takes the stream runs that --measure adds to phase 6 (stream_runs) with
+the package of the checkout at DIR: the phase-6 stream through compress
+in the shipped default (host stealing and steal-back on: the device's
+share, stale rows, every batch's claim->deliver time) and device-only,
+and through decompress_parallel and decompress_stream with both device
+stages and the host C path (the decoder's stage times), each checked,
+as one JSON line.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -26,8 +34,13 @@ Phases (any failure exits non-zero before the last line is printed):
              equally likely: the kernel's worst case)
   4. sweeps: the compare-exchange sweep kernel against its plain
              version at the probe's (32, 7040, 128), sub 4, 210 sweeps,
-             and at sweeps 0, 1 and 2, sub 1, int32 extremes and small
-             or odd row blocks; tolerance 0; CUDA-event times
+             and at sweeps 0, 1 and 2, sub 1, int32 extremes and small,
+             odd, prime and multi-warp row blocks, and columns past 256
+             lanes in CTAs of 32 warps; tolerance 0;
+             CUDA-event and device times; the sweep loop's SASS
+             (cuobjdump; a toolkit without it fails the phase):
+             instructions a compare-exchange issues on the ALU and FMA
+             pipes, and the max must stay on the FMA pipe
   5. probe:  lbzip2_tpu_torch.tools.sort_probe at (32, 901120): torch.sort
              1 key + payload, the BWT's 8-key pass, the sweep kernel at
              210 sweeps, with its launch count
@@ -47,22 +60,27 @@ Phases (any failure exits non-zero before the last line is printed):
              --measure also once with the plain EM loop in the kernels'
              place (plain E-steps, the M-step kernel between them, the
              convergence test read on the host: the main path before the
-             loop moved to the card) and twice in the shipped default
-             (host stealing and steal-back on), with the blocks the
-             device took and every batch's times.
+             loop moved to the card), then stream_runs: three warm runs in
+             the shipped default (host stealing and steal-back on) and one
+             device-only, with the blocks the device took and every
+             batch's times, and both decoders with the device stages and
+             the host C path, with each stage's seconds.
   7. tokens: the same stream in token mode, in a child process of this
              script with LBZ2_DEVICE_CHAIN=0 (the mode is read when the
              pool is made): warm, timed, the same bytes, every
              eligible block on the device, bwt2_tokens dispatched and
              bwt2_bytes never.
-  8. huffdec: the Huffman group-decode kernel against its plain version
-             on every block of the phase-6 stream (lbzip2's layout), of
-             bz2.compress of a three-block prefix (bzip2's layout), a
-             tiny block, a skewed block with long codes, a one-symbol
-             block (b"zzz") and 20,000 groups over unordered random
-             tables (lanes where v < base, the signed shift); every
-             lane of syms and end, tolerance 0; CUDA-event times on one
-             full 900 kB text block
+  8. huffdec: the Huffman group-decode kernels against their plain
+             version on every block of the phase-6 stream (lbzip2's
+             layout), of bz2.compress of a three-block prefix (bzip2's
+             layout), a tiny block, a skewed block with long codes, a
+             one-symbol block (b"zzz"), a block written bit by bit whose
+             six trees each have codes of every length 1 to 20, and
+             20,000 groups over unordered random tables (lanes where
+             v < base, the signed shift; starts too far apart for a
+             CTA's window, some negative); every lane of syms and end,
+             tolerance 0; CUDA-event and device times on one full
+             900 kB text block
   9. ibwt:   the inverse-BWT kernel against its plain version at
              (8, 901120) on real rows and primaries of phase 8's text
              blocks, on rows of n = 1 and 2, one repeated byte and
@@ -123,8 +141,17 @@ Phases (any failure exits non-zero before the last line is printed):
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
-inputs, by any algorithm, over 67 Tops/s (the card's rate outside the
-tensor cores).
+inputs over 33.45 T a second, the most 32-bit integer instructions the
+card issues (one warp instruction a clock on each of the four
+schedulers of the 132 SMs at 1.98 GHz: the published 67 TFLOP/s float32
+rate without the FMA's factor of two).  Beside it the log gives, where
+the bound is out of reach by the function's nature, a floor from a
+model: for the sweeps the ALU pipe's (64 results a clock an SM, for
+the ALU instructions a compare-exchange takes in the SASS), for the
+Huffman decode the chain of 50 dependent shared-memory lookups a thread
+walks, at a published latency of 23 cycles not measured on this card.
+Those floors stay out of the JSON record, whose numbers are measured,
+or, for bound_ms, counted from this run's inputs.
 
 This process imports only the port (lbzip2_tpu_torch), never the JAX
 package or JAX.
@@ -197,6 +224,81 @@ def make_data(seed: int, text_blocks: int = TEXT_BLOCKS):
     return text + rand + nib + runs, text
 
 
+def deep_codes_stream(seed: int = 0, groups: int = 600):
+    """A one-block bzip2 stream written bit by bit: 19 used bytes (an
+    alphabet of 21), six trees whose codes take every length 1 to 20
+    (the end-of-block's 20, the other 20 symbols a permutation of 1..20
+    in each tree), every symbol in the first group of every tree, the
+    rest uniform with lone RUNA and RUNB digits.  Returns (stream,
+    data); the data is what any decoder makes of it."""
+    from lbzip2_tpu_torch import native
+    from lbzip2_tpu_torch.core.bits import BitWriter
+
+    rng = np.random.default_rng(seed)
+    AS, NT, GROUP = 21, 6, 50
+    lengths = np.full((NT, AS), 20, np.int64)
+    codes = np.zeros((NT, AS), np.int64)
+    for t in range(NT):  # canonical codes, shorter first
+        lengths[t, :AS - 1] = rng.permutation(np.arange(1, AS))
+        code = 0
+        for ln in range(1, 21):
+            for s in np.flatnonzero(lengths[t] == ln):
+                codes[t, s] = code
+                code += 1
+            code <<= 1
+    sel = rng.integers(0, NT, groups)
+    syms = rng.integers(2, AS - 1, groups * GROUP)  # MTF ranks 1..18
+    digit = rng.random(syms.size) < 0.05
+    digit[1:] &= ~digit[:-1]  # runs of one digit: no block overflow
+    syms[digit] = rng.integers(0, 2, int(digit.sum()))
+    for t in range(NT):
+        g = int(np.flatnonzero(sel == t)[0])
+        syms[g * GROUP:g * GROUP + AS - 1] = np.r_[0, 2, 1, 3:AS - 1]
+    nsym = syms.size - int(rng.integers(1, GROUP))
+    syms = syms[:nsym]
+    syms[-1] = AS - 1  # end of block
+    sel = sel[:(nsym + GROUP - 1) // GROUP]
+    used = np.zeros(256, np.uint8)
+    used[97:97 + AS - 2] = 1
+    # the decoder's internal values: 0 EOB, ranks, 257 RUNA, 258 RUNB
+    internal = np.where(syms < 2, syms + 257, syms - 1)
+    internal[-1] = 0
+    bwt = native.imtf_rle2(internal.astype(np.uint16), used)
+    idx = int(rng.integers(0, bwt.size))
+    data, crcreg = native.ibwt_emit(bwt, idx, 0)
+    crc = (crcreg ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    w = BitWriter()
+    for value, nbits in ((0x425A6839, 32), (0x314159265359, 48), (crc, 32),
+                         (0, 1), (idx, 24)):
+        w.put(value, nbits)
+    buckets = used.reshape(16, 16)
+    w.put(int("".join("1" if b.any() else "0" for b in buckets), 2), 16)
+    for b in buckets:
+        if b.any():
+            w.put(int("".join(map(str, b)), 2), 16)
+    w.put(NT, 3)
+    w.put(sel.size, 15)
+    order = list(range(NT))
+    for t in sel.tolist():  # selectors, move-to-front, in unary
+        j = order.index(t)
+        order.insert(0, order.pop(j))
+        w.put((1 << (j + 1)) - 2, j + 1)
+    for t in range(NT):  # code lengths, delta-coded
+        a = int(lengths[t, 0])
+        w.put(a, 5)
+        for c in lengths[t].tolist():
+            while a != c:
+                w.put(0b10 if a < c else 0b11, 2)
+                a += 1 if a < c else -1
+            w.put(0, 1)
+    tree = np.repeat(sel, GROUP)[:nsym]
+    w.put_arrays(codes[tree, syms], lengths[tree, syms])
+    w.put(0x177245385090, 48)
+    w.put(crc, 32)
+    w.pad_to_byte()
+    return w.getvalue(), data.tobytes()
+
+
 def host_reference(data: bytes) -> bytes:
     """The repo's host C pipeline on ``data``, run as its own process
     through the lbzip2 front end (bin/lbzip2)."""
@@ -223,19 +325,138 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS_S = 67e12     # float32 / int32 outside the tensor cores
+SMS, BOOST_HZ = 132, 1.98e9  # H100 SXM: SMs, the published boost clock
+# the most 32-bit integer instructions the card issues a second: one warp
+# instruction a clock on each of an SM's four schedulers (128 lanes), the
+# ALU pipe (min, max, logic, IADD3: 64 a clock) and the FMA pipe (IMAD: 64
+# a clock) both busy; the published 67 TFLOP/s float32 without the FMA's
+# factor of two
+INT_OPS_S = 128 * SMS * BOOST_HZ
+# results a clock an SM issues on the integer ALU pipe (32-bit min, max,
+# compare and logic: the CUDA programming guide's throughput table for
+# compute capability 9.0) and, for the Huffman chain's model, the latency
+# of a dependent shared-memory load in cycles (published, not measured
+# here)
+ALU_PER_CLOCK, LDS_CYCLES = 64, 23
+# instructions a compare-exchange of the sweep needs: a min, an add and a
+# LOP3 (min & ~1 | sum & 1), the fewest an exact variant compiled to
+SWEEP_INSTRUCTIONS = 3
 
 
 def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: bytes over the memory rate
-    or operations over the peak rate, whichever is larger.  No single
-    PyTorch call computes any of the six kernels' functions (the EM
-    loop least of all: a data-dependent number of rounds of a packed
+    """The least time the card could take: the bytes the function must
+    move (each input read once, each output written once) over the
+    memory rate, or the integer instructions it needs on this run's
+    inputs, one an operation, over INT_OPS_S, whichever is larger.  No
+    single PyTorch call computes any of the six kernels' functions (the
+    EM loop least of all: a data-dependent number of rounds of a packed
     argmin and a Huffman construction), so there is no library time to
     set beside them."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT_OPS_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "library_ms": None,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def sweep_keys(dev):
+    """The sweep kernel's timed keys: (32, 7040, 128) random int32 of
+    seed 2, and the generator that made them."""
+    rng = np.random.default_rng(2)
+    k = rng.integers(INT32_MIN, INT32_MAX, (ROWS, WIDTH // 128, 128),
+                     dtype=np.int32, endpoint=True)
+    return torch.from_numpy(k).to(dev), rng
+
+
+# the pipe that issues each SASS opcode of an integer loop on Hopper
+ALU_OPS = {"IMNMX", "LOP3", "IADD3", "ISETP", "SHF", "SEL", "LEA", "PRMT",
+           "MOV", "PLOP3", "IABS", "VIMNMX", "VIMNMX3"}
+FMA_OPS = {"IMAD", "FFMA", "FADD", "FMUL"}
+
+
+def cuobjdump_path() -> str:
+    """cuobjdump of the CUDA toolkit (on PATH or beside nvcc) or of
+    Triton's package; raises where there is none."""
+    import importlib.util
+    import shutil
+
+    from lbzip2_tpu_torch import _build
+
+    spots = [shutil.which("cuobjdump"), os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        spots.append(os.path.join(spec.submodule_search_locations[0],
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    for tool in spots:
+        if tool and os.path.exists(tool):
+            return tool
+    raise RuntimeError(f"no cuobjdump to read the SASS with: {spots}")
+
+
+def sweep_sass(lib: str, per: int, warps: int | None) -> dict:
+    """Opcodes of the compare-exchange loop of the sweep kernel built in
+    ``lib`` for ``per`` rows a thread (in CTAs of ``warps`` warps; None
+    for a tree whose kernel has no such parameter), by cuobjdump: the
+    backward branch whose body holds the most mins (IMNMX or VIMNMX with
+    a true PT operand; a max has !PT) is the sweep, one min a
+    compare-exchange.  Returns each opcode's count a compare-exchange
+    and the instructions a compare-exchange issues on the ALU and FMA
+    pipes; raises where the loop is not found."""
+    name = f"sweep_kernelILi{per}E" + (f"Li{warps}E" if warps else "")
+    text = subprocess.run([cuobjdump_path(), "-sass", lib],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next(f for f in funcs if name in f.split("\n", 1)[0])
+    ops, labels = [], {}  # (address, opcode, is a min); label -> address
+    pending = []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                     r"([^;]*);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for label in pending:
+            labels[label] = addr
+        pending = []
+        is_min = m.group(3).split(".")[0] in ("IMNMX", "VIMNMX") and \
+            re.search(r"(?<!!)\bPT\s*$", m.group(4)) is not None
+        ops.append((addr, m.group(3), m.group(4), is_min))
+    best = None
+    for addr, op, rest, _ in ops:  # backward branches: loops
+        if not op.startswith("BRA"):
+            continue
+        t = re.search(r"`\((\.L_x_\d+)\)", rest)
+        target = labels.get(t.group(1)) if t else None
+        if target is None:
+            t = re.search(r"\b0x([0-9a-f]+)\b", rest)
+            target = int(t.group(1), 16) if t else None
+        if target is None or target > addr:
+            continue
+        loop = [(o, mn) for a, o, _, mn in ops if target <= a <= addr]
+        n = sum(mn for _, mn in loop)
+        if n and (best is None or n > best[0]):
+            best = (n, [o for o, _ in loop])
+    if best is None:
+        raise RuntimeError(f"no compare-exchange loop in {name}'s SASS")
+    n, loop = best
+    counts: dict = {}
+    for o in loop:
+        counts[o] = counts.get(o, 0) + 1
+    base = [o.split(".")[0] for o in loop]
+    return {"per_cex": {o: round(c / n, 3) for o, c in sorted(counts.items())},
+            "alu_per_cex": round(sum(b in ALU_OPS for b in base) / n, 3),
+            "fma_per_cex": round(sum(b in FMA_OPS for b in base) / n, 3),
+            "cex_in_loop": n, "loop_instructions": len(loop)}
+
+
+def pipe_floor_ms(alu_per_cex: float, cex: float) -> float:
+    """The least time the ALU pipe takes to issue ``cex``
+    compare-exchanges of ``alu_per_cex`` instructions each, on every SM
+    at the boost clock."""
+    return alu_per_cex * cex / (ALU_PER_CLOCK * SMS * BOOST_HZ) * 1e3
 
 
 def device_busy(prof) -> tuple[float, int]:
@@ -273,7 +494,11 @@ def idle_share(name: str, fn):
     return out
 
 
-def max_err_of(got: torch.Tensor, want: torch.Tensor) -> int:
+def max_err_of(got, want) -> int:
+    """Largest absolute difference of two tensors, or of two tuples of
+    tensors pair by pair."""
+    if isinstance(got, tuple):
+        return max(max_err_of(g, w) for g, w in zip(got, want))
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
@@ -766,11 +991,30 @@ def em_phase(text_h, batch, dev):
     return record, args
 
 
-def sweep_phase(dev):
-    """Sweep kernel vs plain version on every case; returns the record."""
+def sweep_record(full, ms_k: float, ms_p: float, lib: str):
+    """The sweep kernel's record at the probe's keys, with its bound
+    (SWEEP_INSTRUCTIONS a value a sweep); and, for the log, the sweep
+    loop's SASS and the floor the ALU pipe's published rate gives for
+    the ALU instructions a compare-exchange takes there."""
     from lbzip2_tpu_torch.ops import sort_sweeps
 
-    rng = np.random.default_rng(2)
+    cex = SWEEPS * full.numel()
+    p = sort_sweeps.plan(full.shape[1] // SUB)
+    sass = sweep_sass(lib, p[0], p[4] if len(p) > 4 else None)
+    record = {"name": "sort_sweeps", "route": "cuda",
+              "source": "lbzip2_tpu_torch/csrc/sort_sweeps.cu",
+              "replaces": "tools/tpu_sort_probe.py:77",
+              "launches": 0, "max_abs_err": 0, "ms": ms_k, "plain_ms": ms_p,
+              **bound(2 * full.numel() * 4, SWEEP_INSTRUCTIONS * cex)}
+    return record, sass, pipe_floor_ms(sass["alu_per_cex"], cex)
+
+
+def sweep_phase(dev):
+    """Sweep kernel vs plain version on every case; returns the record."""
+    from lbzip2_tpu_torch import _build
+    from lbzip2_tpu_torch.ops import sort_sweeps
+
+    full, rng = sweep_keys(dev)
 
     def keys(shape, values=None):
         if values is None:
@@ -780,7 +1024,6 @@ def sweep_phase(dev):
             k = rng.choice(np.array(values, np.int32), shape)
         return torch.from_numpy(k).to(dev)
 
-    full = keys((ROWS, WIDTH // 128, 128))
     ext = keys((ROWS, WIDTH // 128, 128),
                (INT32_MIN, INT32_MIN + 1, -1, 0, 1, INT32_MAX - 1,
                 INT32_MAX))
@@ -795,6 +1038,14 @@ def sweep_phase(dev):
         "small_2x64x128_sub1": (keys((2, 64, 128)), 7, 1),
         "odd_rows_3x105x128": (keys((3, 105, 128)), 5, 1),
         "rows_32_2x96x128_sub3": (keys((2, 96, 128)), 9, 3),
+        # a prime: the first 67 lanes of 4 warps a column
+        "prime_rows_2x67x128": (keys((2, 67, 128)), 6, 1),
+        # 515 lanes of 2 rows over 32 warps, the wrap from the last
+        "rows_1030_2x1030x128": (keys((2, 1030, 128)), 4, 1),
+        # a prime past 256 lanes: 16 warps a column, 2 a CTA of 32
+        "prime_rows_2x509x128": (keys((2, 509, 128)), 5, 1),
+        # the tallest block: 1024 lanes of 32 rows, a CTA of 32 warps
+        "rows_32768_1x32768x128": (keys((1, 32768, 128)), 3, 1),
     }
     max_err = 0
     for name, (k, s, sub) in cases.items():
@@ -809,15 +1060,23 @@ def sweep_phase(dev):
 
     ms_k = cuda_ms(lambda: sort_sweeps.sweeps(full, SWEEPS, SUB), 10)
     ms_p = cuda_ms(lambda: sort_sweeps.sweeps_plain(full, SWEEPS, SUB), 2)
+    us = device_us(lambda: sort_sweeps.sweeps(full, SWEEPS, SUB))
+    record, sass, floor = sweep_record(
+        full, ms_k, ms_p, str(_build.BUILD / "libsort_sweeps.so"))
+    record.update(max_abs_err=max_err, device_us=us)
     log(f"sort_sweeps (32, 7040, 128) sub {SUB}, {SWEEPS} sweeps: kernel "
-        f"{ms_k:.3f} ms, plain {ms_p:.3f} ms")
-    return {"name": "sort_sweeps", "route": "cuda",
-            "source": "lbzip2_tpu_torch/csrc/sort_sweeps.cu",
-            "replaces": "tools/tpu_sort_probe.py:77",
-            "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p,
-            # keys in and out; a sweep is a min and a max for each pair
-            **bound(2 * full.numel() * 4, SWEEPS * full.numel())}
+        f"{ms_k:.4f} ms (device {json.dumps(us)} us), plain {ms_p:.3f} ms; "
+        f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}: "
+        f"{SWEEP_INSTRUCTIONS} instructions a compare-exchange at "
+        f"{INT_OPS_S / 1e12:.2f} T a second); floor of the ALU pipe for "
+        f"the SASS's {sass['alu_per_cex']} ALU instructions a "
+        f"compare-exchange {floor:.4f} ms (a model: {ALU_PER_CLOCK} a "
+        f"clock an SM at {BOOST_HZ / 1e9} GHz); SASS of the sweep loop "
+        f"{json.dumps(sass)}")
+    # the max stays on the FMA pipe (no IADD3)
+    assert sass["fma_per_cex"] >= 2 and sass["alu_per_cex"] <= 2.5, \
+        f"ptxas moved the max back to the ALU: {sass}"
+    return record
 
 
 def token_run(eligible: int) -> int:
@@ -888,6 +1147,42 @@ def token_phase(data: bytes, eligible: int, ref: bytes) -> dict:
     return res
 
 
+def huffdec_record(timed, ms_k: float, ms_p: float) -> dict:
+    """The group-decode kernel's record on one block's inputs: the bytes
+    bound (every input once, syms (G, 50) and end (G,) out; a symbol's
+    20 compares and 6 more operations are 0.06 of it)."""
+    groups = timed[1].numel()
+    return {"name": "huffdec", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/huffdec.cu",
+            "replaces": "lbzip2_tpu/ops/huffdec.py:32",
+            "launches": 0, "max_abs_err": 0, "ms": ms_k, "plain_ms": ms_p,
+            **bound(sum(a.numel() for a in timed) * 4 + groups * 51 * 4,
+                    groups * 50 * 26)}
+
+
+def chain_floor_ms() -> float:
+    """A model of the Huffman decode's floor: the chain of 50 dependent
+    shared-memory lookups each thread walks, at LDS_CYCLES each (a
+    published latency, not measured on this card) and the boost clock."""
+    return 50 * LDS_CYCLES / BOOST_HZ * 1e3
+
+
+def text_block_inputs(text: bytes, dev):
+    """decode_groups' inputs on the card for the first block of the
+    text in lbzip2's layout (the host C pipeline's bytes, which compress
+    writes too): a 900 kB block."""
+    from lbzip2_tpu_torch.ops import huffdec
+    from lbzip2_tpu_torch.parallel.decode import block_payloads
+    from lbzip2_tpu_torch.parallel.encode import compress_parallel
+
+    blob = compress_parallel(text[:2 * BLOCK], 9)
+    arr = np.frombuffer(blob, np.uint8)
+    _, _, _, inputs = huffdec.group_inputs(arr, arr.size * 8,
+                                           block_payloads(blob)[0])
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in inputs]
+
+
 def huffdec_phase(chain_blob: bytes, data: bytes, dev):
     """Group-decode kernel vs plain version on every block of several
     streams; returns the record."""
@@ -897,12 +1192,16 @@ def huffdec_phase(chain_blob: bytes, data: bytes, dev):
     rng = np.random.default_rng(3)
     skew = np.where(rng.random(80000) < 0.995, 120,
                     rng.integers(0, 256, 80000)).astype(np.uint8)
+    deep, deep_data = deep_codes_stream(0)
+    assert bz2.decompress(deep) == deep_data
     streams = {
         "chain_stream": chain_blob,
         "bz2_prefix_3_blocks": bz2.compress(data[:3 * BLOCK], 9),
         "tiny": bz2.compress(b"abracadabra", 9),
         "long_codes": bz2.compress(skew.tobytes(), 9),
         "one_symbol": bz2.compress(b"zzz", 9),  # RLE1 keeps 3 alone
+        # six trees, each with codes of every length 1 to 20
+        "deep_codes_6_trees_lengths_1_to_20": deep,
     }
     max_err, timed = 0, None
     for name, blob in streams.items():
@@ -926,13 +1225,15 @@ def huffdec_phase(chain_blob: bytes, data: bytes, dev):
         log(f"huffdec kernel vs plain [{name}]: {len(errs)} blocks, "
             f"{groups} groups, max_abs_err {max(errs)}")
         assert max(errs) == 0, f"huffdec kernel disagrees on {name}"
-    # unordered tables: lanes with v < base[k] (the signed shift)
+    # unordered tables: lanes with v < base[k] (the signed shift), and
+    # starts far apart (a CTA's window too wide to stage) and negative
     base = rng.integers(0, 2**20 + 2**18, (6, 22)).astype(np.uint32)
     base[:, 21] = 2**20
+    starts = rng.integers(0, 32 * 4096, 20000).astype(np.int32)
+    starts[::97] = -rng.integers(1, 3000, starts[::97].size)
     args = [torch.from_numpy(a).to(dev) for a in (
         rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(
-            np.uint32).view(np.int32),
-        rng.integers(0, 32 * 4096, 20000).astype(np.int32),
+            np.uint32).view(np.int32), starts,
         rng.integers(0, 6, 20000).astype(np.int32), base.view(np.int32),
         rng.integers(-300, 300, (6, 22)).astype(np.int32),
         rng.integers(0, 258, (6, 258)).astype(np.int32))]
@@ -945,20 +1246,17 @@ def huffdec_phase(chain_blob: bytes, data: bytes, dev):
         f"max_abs_err {err}")
     assert err == 0, "huffdec kernel disagrees on arbitrary tables"
     max_err = max(max_err, err)
-    groups_t = timed[1].numel()
     ms_k = cuda_ms(lambda: huffdec.decode_groups(*timed), 20)
     ms_p = cuda_ms(lambda: huffdec.decode_groups_plain(*timed), 3)
-    log(f"huffdec one 900 kB text block ({groups_t} groups): "
-        f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
-    return {"name": "huffdec", "route": "cuda",
-            "source": "lbzip2_tpu_torch/csrc/huffdec.cu",
-            "replaces": "lbzip2_tpu/ops/huffdec.py:32",
-            "launches": 0, "max_abs_err": max_err, "ms": ms_k,
-            "plain_ms": ms_p,
-            # every input once, syms (G, 50) and end (G,) out; a symbol
-            # is 20 compares against the bases and about 6 more
-            **bound(sum(a.numel() for a in timed) * 4 + groups_t * 51 * 4,
-                    groups_t * 50 * 26)}
+    us = device_us(lambda: huffdec.decode_groups(*timed))
+    record = huffdec_record(timed, ms_k, ms_p)
+    record.update(max_abs_err=max_err, device_us=us)
+    log(f"huffdec one 900 kB text block ({timed[1].numel()} groups): "
+        f"call {ms_k:.4f} ms, the kernels' device time {json.dumps(us)} "
+        f"us, plain {ms_p:.3f} ms; bound {record['bound_ms']:.4f} ms "
+        f"({record['bound_by']}); the chain's floor {chain_floor_ms():.4f} "
+        f"ms (a model: 50 lookups of {LDS_CYCLES} cycles)")
+    return record
 
 
 IBWT_TIMED = ("text_8x901120", "padded_3_live", "n1_only")
@@ -975,7 +1273,9 @@ IBWT_CALL_SHARES = (0.7, 0.3)
 
 def ibwt_batch(rows, dev, width: int):
     """(bwt, ns, idxs) on the card from (bwt, idx) rows, padded to 8
-    rows as the decoder's batcher pads: n = 1, idx = 0."""
+    rows of n = 1, idx = 0: the JAX batcher's shape (the port's batcher
+    ships its live rows), which the kernel must take at the cost of its
+    live lanes."""
     b = np.zeros((8, width), np.uint8)
     ns = np.ones(8, np.int32)
     idxs = np.zeros(8, np.int32)
@@ -996,10 +1296,9 @@ def ibwt_phase(chain_blob: bytes, dev):
     """Inverse-BWT kernel vs plain version at (8, 901120) and edge
     cases; returns the record."""
     from lbzip2_tpu_torch.ops import huffdec, ibwt
-    from lbzip2_tpu_torch.parallel.decode import _IBWT_N, block_payloads
+    from lbzip2_tpu_torch.parallel.decode import block_payloads
 
     B = 8
-    assert _IBWT_N == WIDTH
     arr = np.frombuffer(chain_blob, np.uint8)
     text = []  # (bwt, idx) of the stream's first 8 blocks (text)
     for pos in block_payloads(chain_blob)[:B]:
@@ -1008,7 +1307,7 @@ def ibwt_phase(chain_blob: bytes, dev):
         assert err == 0 and not rnd
         text.append((bwt, idx))
 
-    def batch(rows, width=_IBWT_N):
+    def batch(rows, width=WIDTH):
         return ibwt_batch(rows, dev, width)
 
     def random_bwt(n):
@@ -1024,16 +1323,16 @@ def ibwt_phase(chain_blob: bytes, dev):
         return data[(order - 1) % n], int(np.flatnonzero(order == 0)[0])
 
     rng = np.random.default_rng(4)
-    uni = rng.integers(0, 256, _IBWT_N, dtype=np.uint8)
+    uni = rng.integers(0, 256, WIDTH, dtype=np.uint8)
     small = rng.integers(0, 5, 10001, dtype=np.uint8)
     wide = 1 << 21  # past 40,960 splitters at 32 positions: 64 apart
-    assert ibwt.shift_for(wide) > ibwt.shift_for(_IBWT_N)
+    assert ibwt.shift_for(wide) > ibwt.shift_for(WIDTH)
     cases = {
         **ibwt_timed_cases(text, dev),
         "edges_n1_n2_repeat_uniform": batch([
             (uni[:1], 0), (uni[:2], 1),
             (np.full(BLOCK, 0x61, np.uint8), 12345),
-            (uni, int(rng.integers(0, _IBWT_N)))]),
+            (uni, int(rng.integers(0, WIDTH)))]),
         # ptr of [1, 0, 2, 2, ...] is 0 -> 1 -> 0 and the rest; a start
         # at n - 1, at n and far past n
         "two_cycles_idx_at_and_past_n": batch([
@@ -1222,14 +1521,17 @@ def cli_phase(few: bytes) -> None:
 
 
 def kernels_only(seed: int, profiled: bool, dev) -> int:
-    """--kernels: the MTF-rank, inverse-BWT and code-length kernels and
-    the EM loop of the package on the path, held against their plain
-    versions (tolerance 0) and timed on the smoke's timed inputs; and the
-    peak of device memory over one text batch through chain_payloads.
-    One JSON line.  A checkout from before the EM loop moved to the card
-    has no em_chain_rows: there the loop timed is the one its main path
-    ran, the plain E-steps with the M-step kernel between them."""
-    from lbzip2_tpu_torch.ops import chain, huffenc, ibwt, mtf_pallas
+    """--kernels: the six kernels of the package on the path (MTF
+    ranks, sweeps, Huffman group decode, inverse BWT, code lengths, the
+    EM loop), held against their plain versions (tolerance 0) and timed
+    on the smoke's timed inputs; the sweep loop's SASS; and the peak of
+    device memory over one text batch through chain_payloads.  One JSON
+    line.  A checkout from before the EM loop moved to the card has no
+    em_chain_rows: there the loop timed is the one its main path ran,
+    the plain E-steps with the M-step kernel between them."""
+    from lbzip2_tpu_torch import _build
+    from lbzip2_tpu_torch.ops import (chain, huffdec, huffenc, ibwt,
+                                      mtf_pallas, sort_sweeps)
 
     _, text = make_data(seed, text_blocks=ROWS)
     mtf_cases, batch = mtf_timed_cases(text, dev)
@@ -1240,6 +1542,13 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
              for name, a in mtf_cases.items()}
     calls.update({f"ibwt_{name}": (ibwt.ibwt_rows, ibwt.ibwt_plain, a)
                   for name, a in ibwt_timed_cases(rows, dev).items()})
+    full, _ = sweep_keys(dev)
+    calls["sort_sweeps_32x7040x128_sub4"] = (
+        lambda k: sort_sweeps.sweeps(k, SWEEPS, SUB),
+        lambda k: sort_sweeps.sweeps_plain(k, SWEEPS, SUB), (full,))
+    timed = text_block_inputs(text, dev)
+    calls["huffdec_text_block"] = (huffdec.decode_groups,
+                                   huffdec.decode_groups_plain, timed)
     text_args = em_case(*text_symbols(batch, dev), dev)
     calls["code_lengths_192x259_text"] = (
         huffenc.make_code_lengths_rows, huffenc._make_code_lengths_rows,
@@ -1256,10 +1565,18 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
         torch.cuda.synchronize()
         res["max_abs_err"][name] = max_err_of(got, want)
         res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if
-                                  name.startswith("code") else 10)
+                                  name.startswith(("code", "huff")) else 10)
         if profiled:
             res.setdefault("kernels_us", {})[name] = device_us(
                 lambda: kernel(*a))
+    sweep, sass, floor = sweep_record(
+        full, res["ms"]["sort_sweeps_32x7040x128_sub4"], None,
+        str(_build.BUILD / "libsort_sweeps.so"))
+    res["records"] = {
+        "huffdec": huffdec_record(timed, res["ms"]["huffdec_text_block"],
+                                  None), "sort_sweeps": sweep}
+    res["models"] = {"sort_sweeps_sass": sass, "sort_sweeps_alu_floor_ms":
+                     floor, "huffdec_chain_floor_ms": chain_floor_ms()}
     first = ibwt.ibwt_rows(*calls["ibwt_text_8x901120"][2])[0, :BLOCK]
     assert first.cpu().numpy().tobytes() == text[:BLOCK], \
         "the inverse BWT of a text row is not the block"
@@ -1319,21 +1636,101 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
     return 0
 
 
+def stream_runs(data: bytes, ref: bytes, dev) -> dict:
+    """The stream through the package on the path as a user runs it.
+    Compress in the shipped default (host stealing and steal-back on)
+    four times, the first not kept (the process's first call may be
+    cold), then once device-only (stealing off, as the rest of the smoke
+    runs), each equal to ``ref`` (bin/lbzip2 -9); then
+    decompress_parallel twice and decompress_stream once with both
+    device stages on, and the host C path, each equal to the data; per
+    run its MB/s, the engines' block counts, every batch's times and the
+    decoder's stats (its stage seconds)."""
+    from lbzip2_tpu_torch.codec import encoder
+    from lbzip2_tpu_torch.ops import huffdec, ibwt
+    from lbzip2_tpu_torch.parallel import decode
+
+    res = {"package": os.path.dirname(encoder.__file__), "card": card_line(),
+           "bytes": len(data), "compress": [], "decompress": []}
+    batch_keys = ("rows", "claimed_t", "claim_s", "prep_s", "dispatch_s",
+                  "ready_s", "done_t")
+    for steal, turns in ((True, 4), (False, 1)):
+        encoder._HOST_STEAL = encoder._STEALBACK = steal
+        for turn in range(turns):
+            t0 = time.time()
+            out = encoder.compress(data, 9, device=dev)
+            dt = time.time() - t0
+            st = encoder.last_stats
+            assert out == ref, "compress differs from bin/lbzip2 -9"
+            if steal and turn == 0:
+                continue  # the first call of the process is cold
+            res["compress"].append({
+                "config": "default" if steal else "device_only",
+                "s": dt, "mbps": len(data) / dt / 1e6,
+                **{k: st[k] for k in ("device_blocks", "host_blocks",
+                                      "stale_rows")},
+                "batches": [{k: t.get(k) for k in batch_keys}
+                            for t in st["batch_trace"]]})
+    for huff_ibwt, runs in ((True, 2), (False, 1)):
+        decode.DEVICE_HUFF = decode.DEVICE_IBWT = huff_ibwt
+        for _ in range(runs):
+            huffdec.launches = ibwt.launches = 0
+            t0 = time.time()
+            assert decode.decompress_parallel(out, device=dev) == data
+            dt = time.time() - t0
+            res["decompress"].append({
+                "entry": "decompress_parallel",
+                "stages": "device" if huff_ibwt else "host_c", "s": dt,
+                "mbps": len(data) / dt / 1e6,
+                "huffdec_launches": huffdec.launches,
+                "ibwt_launches": ibwt.launches, **decode.last_stats})
+        if not huff_ibwt:
+            continue
+        parts, view, cursor = [], memoryview(out), [0]
+
+        def read_chunk(n):
+            chunk = view[cursor[0]:cursor[0] + n]
+            cursor[0] += len(chunk)
+            return bytes(chunk)
+        t0 = time.time()
+        decode.decompress_stream(read_chunk, parts.append, device=dev)
+        dt = time.time() - t0
+        assert b"".join(parts) == data, "decompress_stream differs"
+        res["decompress"].append({
+            "entry": "decompress_stream", "stages": "device", "s": dt,
+            "mbps": len(data) / dt / 1e6, **decode.last_stats})
+    decode.DEVICE_HUFF = decode.DEVICE_IBWT = False
+    return res
+
+
+def stream_tree(seed: int, dev) -> int:
+    """--measure --tree DIR: stream_runs on the phase-6 stream with the
+    package of DIR, as one JSON line."""
+    from lbzip2_tpu_torch.codec import encoder
+
+    data, _ = make_data(seed)
+    ref = host_reference(data)
+    warm = encoder.warm_device(device=dev)
+    print(json.dumps({"warm_device_s": warm, **stream_runs(data, ref, dev)}),
+          flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--measure", action="store_true",
                     help="also the device time per op of one text batch, "
-                    "the whole stream with the plain EM loop and in the "
-                    "default configuration (host stealing on), and the "
-                    "decode phase under the profiler")
+                    "the whole stream with the plain EM loop, the stream "
+                    "runs (shipped default, device-only, both decoders "
+                    "with their stage times), and the decode phase under "
+                    "the profiler; with --tree only the stream runs")
     ap.add_argument("--kernels", action="store_true",
-                    help="only time the MTF-rank, inverse-BWT and "
-                    "code-length kernels and the EM loop on the smoke's "
-                    "timed inputs")
+                    help="only hold the six kernels against their plain "
+                    "versions and time them on the smoke's timed inputs")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --kernels: take the package from the "
-                    "checkout at DIR")
+                    help="with --kernels or --measure: take the package "
+                    "from the checkout at DIR")
     ap.add_argument("--profile", action="store_true",
                     help="with --kernels: also each CUDA kernel's device "
                     "time by torch.profiler")
@@ -1349,10 +1746,14 @@ def main(argv=None) -> int:
     os.environ["LBZ2_STEALBACK"] = "0"
     if args.token_run is not None:
         return token_run(args.token_run)
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     if args.kernels:
-        if args.tree:
-            sys.path.insert(0, os.path.abspath(args.tree))
         return kernels_only(args.seed, args.profile, torch.device("cuda", 0))
+    if args.tree and args.measure:
+        return stream_tree(args.seed, torch.device("cuda", 0))
+    if args.tree:
+        ap.error("--tree goes with --kernels or --measure")
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
@@ -1440,9 +1841,11 @@ def main(argv=None) -> int:
 
     def log_batches(stats):
         for i, tele in enumerate(stats["batch_trace"]):
-            log(f"  batch {i}: shape {tele['shape']} prep {tele['prep_s']} s "
-                f"dispatch {tele['dispatch_s']} s ready {tele['ready_s']} s "
-                f"chain_stages {json.dumps(tele.get('chain_stages'))}")
+            log(f"  batch {i}: shape {tele['shape']} claimed at "
+                f"{tele['claimed_t']} s, prep {tele['prep_s']} s dispatch "
+                f"{tele['dispatch_s']} s ready {tele['ready_s']} s, "
+                f"claim->deliver {tele['claim_s']} s; chain_stages "
+                f"{json.dumps(tele.get('chain_stages'))}")
 
     log_batches(stats)
     assert em_launches == len(stats["batch_trace"]) > 0 and \
@@ -1485,20 +1888,13 @@ def main(argv=None) -> int:
             f"{len(data) / dt_plain / 1e6:.3f} MB/s against {dt:.3f} s = "
             f"{len(data) / dt / 1e6:.3f} MB/s with the EM kernels")
         log_batches(encoder.last_stats)
-        # the shipped default: host stealing and steal-back on
-        encoder._HOST_STEAL = encoder._STEALBACK = True
-        for turn in range(2):
-            t0 = time.time()
-            shipped = encoder.compress(data, 9, device=dev)
-            dt_def = time.time() - t0
-            st = encoder.last_stats
-            assert shipped == ref, "compress with host stealing on differs"
-            log(f"compress, default configuration (host stealing on), turn "
-                f"{turn}: {dt_def:.3f} s = {len(data) / dt_def / 1e6:.3f} "
-                f"MB/s; device {st['device_blocks']} blocks, host "
-                f"{st['host_blocks']}, stale rows {st['stale_rows']}")
-            log_batches(st)
-        encoder._HOST_STEAL = encoder._STEALBACK = False
+        runs = stream_runs(data, ref, dev)
+        for r in runs["compress"] + runs["decompress"]:
+            r = {k: v for k, v in r.items() if k != "batches"}
+            log(f"stream run: {json.dumps(r)}")
+        for i, r in enumerate(runs["compress"]):
+            log(f"  compress run {i} ({r['config']}) batches: "
+                f"{json.dumps(r['batches'])}")
 
     tok = token_phase(data, eligible, ref)
     log(f"compress warm, {len(data)} bytes: token mode {tok['s']:.3f} s = "

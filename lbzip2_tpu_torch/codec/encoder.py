@@ -77,18 +77,38 @@ _DEVICE = os.environ.get("LBZ2_DEVICE", "1") != "0"
 _HOST_STEAL = os.environ.get("LBZ2_HOST_STEAL", "1") != "0"
 
 # Steal-back of device-claimed blocks when the host would otherwise
-# idle.  Grace period: steal only when the device has not completed a
-# batch for this long (0 completions ever = steal immediately).
+# idle.  Grace period: steal only when the device has not delivered a
+# batch for max(LBZ2_STEALBACK_GRACE_S, 2 x the claim->deliver latency
+# estimate), so claims the device is about to deliver are not encoded
+# twice (no delivery ever = steal immediately).  The latency estimate
+# sets the grace: on an H100 a claim comes back in 0.04 to 1 s
+# (PERF.md section 5), so a fixed grace of seconds would never fire.
 _STEALBACK = os.environ.get("LBZ2_STEALBACK", "1") != "0"
 _STEALBACK_GRACE_S = float(os.environ.get("LBZ2_STEALBACK_GRACE_S",
-                                          "10"))
+                                          "0"))
 
 # Drain guard (take_head): stop device claims when the host pool would
-# finish the remaining queue faster than one device batch round trip.
-# The latency estimate is fitted from observed batch completions but
-# never below this floor.
+# finish the remaining queue faster than one device claim comes back.
+# The latency is the claim->deliver time of the device's batches (an
+# EMA), never below this floor: the fastest claim->deliver measured on
+# an H100, one row in 0.035 s (PERF.md section 5).
 _DRAIN_LAT_FLOOR_S = float(os.environ.get("LBZ2_DRAIN_LAT_FLOOR_S",
-                                          "2.0"))
+                                          "0.035"))
+
+# Rows of the device's first claim of a stream, doubled each claim up to
+# _BATCH: on an H100 an 8-row batch comes back in 0.13 s and a 32-row
+# one in 0.3 to 1 s (PERF.md section 5), so the first delivery lands
+# while the host still has tail work, and later claims take full
+# batches.
+_FIRST_CLAIM = 8
+
+# Niceness a host worker adds to its own thread while the pool runs a
+# device engine: the engine's dispatch and fetch threads launch kernels
+# and wait on them from Python, and behind eight busy host workers on
+# eight cores an 8-row claim took 0.2 to 0.7 s to dispatch against
+# 0.03 s alone (PERF.md section 5).  The workers still take every idle
+# cycle.
+_HOST_NICE = 10
 
 # Device entropy chain: run MTF+RLE2+EM+bit-pack on the device and
 # download only compressed payloads (ops/chain.py).  LBZ2_DEVICE_CHAIN=0
@@ -259,6 +279,7 @@ class _TorchPool:
         self.next_deliver = 0  # results below this are stale duplicates
         self.last_batch_t = 0.0  # monotonic t of last device completion
         self.lat_ema = 0.0     # claim->deliver latency estimate (s)
+        self.claims = 0        # device claims granted
         self.fetch_q: queue.Queue = queue.Queue()
         self.fetch_pending = 0  # dispatched batches not yet fetched
         # the fetch worker signals every finished batch here; fail() and
@@ -277,13 +298,14 @@ class _TorchPool:
 
     # --- queue primitives -------------------------------------------------
     def take_head(self, k: int) -> list[int]:
-        """Device claim: full batches while the queue is deep, batches
-        of 8 near the end, at most half the remainder — so host
-        tail-stealing always keeps its share of a short queue.
+        """Device claim: _FIRST_CLAIM rows first, doubling each claim up
+        to k while the queue is deep, batches of 8 near the end, at
+        most half the remainder — so host tail-stealing always keeps its
+        share of a short queue.
 
         Drain guard: once live rates are known, don't claim blocks the
-        host pool would finish faster than one device batch round
-        trip: otherwise the end of every stream runs at device batch
+        host pool would finish faster than one claim takes to come
+        back: otherwise the end of every stream runs at device batch
         latency."""
         with self.q_lock:
             if self.abandoned:  # watchdog fired: stop claiming
@@ -292,13 +314,15 @@ class _TorchPool:
             el = time.time() - self.stats["t0"]
             hb = self.stats["host_blocks"]
             db = self.stats["device_batches"]
+            k = min(k, _FIRST_CLAIM << min(self.claims, 16))
             if hb and len(db) >= 2 and el > 0:
                 host_bps = hb / el                       # blocks/s
-                # latency = observed claim->deliver time (ready_s EMA),
-                # NOT completion spacing: with several batches pipelined
-                # the cadence reads far shorter than the time a claim
-                # takes to come back, and a guard fed the cadence claims
-                # extra batches at the drain
+                # latency = observed claim->deliver time (an EMA of
+                # each batch's claim_s), NOT completion spacing: with
+                # several batches pipelined the cadence reads far
+                # shorter than the time a claim takes to come back, and
+                # a guard fed the cadence claims extra batches at the
+                # drain
                 lat = max(_DRAIN_LAT_FLOOR_S, self.lat_ema)
                 if remaining < k + host_bps * lat:
                     return []
@@ -313,6 +337,7 @@ class _TorchPool:
             got = self.ids[self.head:min(self.head + k, self.tail)]
             self.head += len(got)
             self.claimed.update(got)
+            self.claims += 1
             return got
 
     def take_tail(self) -> int | None:
@@ -322,20 +347,22 @@ class _TorchPool:
             self.tail -= 1
             return self.ids[self.tail]
 
+    def stealback_grace(self) -> float:
+        """Seconds without a device delivery before the host steals
+        back claimed blocks: two claim->deliver times, or
+        _STEALBACK_GRACE_S if longer."""
+        return max(_STEALBACK_GRACE_S, 2.0 * self.lat_ema)
+
     def take_claimed(self) -> int | None:
         """Steal back a device-claimed block (cold start, wedged
-        engine, end-of-stream drain).  Takes the youngest claim: the
+        engine, end-of-stream drain) once the device has delivered
+        nothing for the grace period.  Takes the youngest claim: the
         device completes oldest batches first, so the youngest is the
-        least likely to be seconds from delivery.  First result wins;
-        the loser's late duplicate is dropped by put_result."""
-        with self.q_lock:
-            queue_empty = self.tail <= self.head
-        if not queue_empty and self.last_batch_t and \
-                time.time() - self.last_batch_t < _STEALBACK_GRACE_S:
-            return None  # device is streaming AND there is tail work:
-            # don't duplicate.  With an empty tail the host has nothing
-            # else to do, so racing the device is a free win (first
-            # result wins; the loser's duplicate is dropped).
+        least likely to be close to delivery.  First result wins; the
+        loser's late duplicate is dropped by put_result."""
+        if self.last_batch_t and \
+                time.time() - self.last_batch_t < self.stealback_grace():
+            return None  # the device is delivering its claims
         with self.q_lock:
             if not self.claimed:
                 return None
@@ -411,11 +438,22 @@ class _TorchPool:
                         continue
                 ids = self.take_head(_BATCH)
                 if not ids:
-                    break  # the drain below keeps the sentinel last
+                    # a refusal stands until a batch lands: each delivery
+                    # renews the guard's latency and proves the engine,
+                    # and on the card one lands within a second.  With
+                    # none in flight, or no queue left, stop claiming
+                    # (the drain below keeps the sentinel last)
+                    with self.fetch_cv:
+                        if self.fetch_pending == 0 or self.tail <= self.head:
+                            break
+                        self.fetch_cv.wait(timeout=_WAKE_S)
+                    continue
+                claimed_t = round(time.time() - self.stats["t0"], 3)
                 built = self._build_batch(ids)
                 if built is None:
                     continue
                 ids, spans, batch, ns, ms, tele = built
+                tele["claimed_t"] = claimed_t
                 t0 = time.time()
                 with self._on_stream():
                     args = (upload(batch, self.device),
@@ -553,12 +591,16 @@ class _TorchPool:
         self._batch_done(tele, fresh, stale)
 
     def _batch_done(self, tele, fresh, stale):
-        """Account a fetched batch: its completion time, the latency
-        estimate of the drain guard and the block counts."""
-        tele["done_t"] = round(time.time() - self.stats["t0"], 2)
+        """Account a fetched batch: its completion time, its
+        claim->deliver time (``claim_s``: from take_head handing out
+        its ids to now, prep, dispatch, queueing and fetch included),
+        the latency estimate of the drain guard and the block counts."""
+        now = time.time() - self.stats["t0"]
+        tele["done_t"] = round(now, 2)
+        tele["claim_s"] = round(now - tele["claimed_t"], 3)
         self.last_batch_t = time.time()
-        self.lat_ema = tele["ready_s"] if not self.lat_ema else \
-            0.5 * self.lat_ema + 0.5 * tele["ready_s"]
+        self.lat_ema = tele["claim_s"] if not self.lat_ema else \
+            0.5 * self.lat_ema + 0.5 * tele["claim_s"]
         self.stats["device_blocks"] += fresh
         self.stats["stale_rows"] += stale
         self.stats["device_batches"].append((fresh, tele["done_t"]))
@@ -627,9 +669,12 @@ class _TorchPool:
                           device inventory)
           2. steal      — whole block from the tail of the shared queue
           3. steal_back — device-claimed block, gated by take_claimed's
-                          streaming-grace (cold start / outage only)
-        Blocks (with a 1 s re-poll so the gates above are re-evaluated)
-        when nothing is ready but work may still appear."""
+                          streaming grace (cold start, outage, a device
+                          that stopped delivering)
+        Blocks (with a 1 s re-poll, no longer than the steal-back grace
+        while there are claims to steal, so the gates above are
+        re-evaluated) when nothing is ready but work may still
+        appear."""
         while True:
             item = self.entropy_q.get(block=False)
             if item is not None:
@@ -644,14 +689,19 @@ class _TorchPool:
                         return ("steal_back", i)
             if self.device_done and self.entropy_q.empty():
                 return None
+            wait = 1.0
+            if _HOST_STEAL and _STEALBACK and self.claimed:
+                wait = min(wait, max(0.02, self.stealback_grace()))
             t = time.time()
-            item = self.entropy_q.get(block=True, timeout=1.0)
+            item = self.entropy_q.get(block=True, timeout=wait)
             self.stats["host_idle_s"] += time.time() - t
             if item is not None:
                 return ("entropy", item)
 
     def host_loop(self):
         try:
+            if self.use_device:
+                _yield_to_device()
             while True:
                 task = self._next_task()
                 if task is None:
@@ -753,6 +803,17 @@ class _TorchPool:
             t.join(timeout=max(0.0, deadline - time.time()))
         if self._fetcher is not None:
             self._fetcher.join(timeout=max(0.0, deadline - time.time()))
+
+
+def _yield_to_device() -> None:
+    """Lower the calling host worker thread's priority by _HOST_NICE
+    (Linux sets it for a thread; elsewhere nothing changes)."""
+    try:
+        tid = threading.get_native_id()
+        os.setpriority(os.PRIO_PROCESS, tid,
+                       os.getpriority(os.PRIO_PROCESS, tid) + _HOST_NICE)
+    except (AttributeError, OSError):
+        pass  # no per-thread priority on this platform
 
 
 def lyndon_rows(blocks: list[np.ndarray], width: int):

@@ -6,8 +6,9 @@ code lengths to find every group's start bit
 parallel, the host checks that each group's end cursor meets the next
 group's start and runs IMTF + RLE2 (``native.imtf_rle2``).
 
-``decode_groups`` runs the hand-written kernel ``csrc/huffdec.cu`` (one
-thread per group, the trees' tables in shared memory) for a CUDA
+``decode_groups`` runs the hand-written kernels ``csrc/huffdec.cu`` (a
+table of each tree's 10-bit prefixes, built once a call; then one thread
+per group through a bit buffer, one table lookup a symbol) for a CUDA
 tensor, and the plain PyTorch version for a CPU tensor.  Words are u32
 bit patterns held in int32 tensors; every other input holds small
 non-negative values in int32.
@@ -16,20 +17,23 @@ non-negative values in int32.
 from __future__ import annotations
 
 import ctypes
+import threading
+import time
 
 import numpy as np
 import torch
 
 from lbzip2_tpu_torch import _build, native
 from lbzip2_tpu_torch.core.constants import Error
-from lbzip2_tpu_torch.device import to_host, upload
+from lbzip2_tpu_torch.device import to_host
 from lbzip2_tpu_torch.interop import M32
 
 GROUP_SIZE = 50
 MAX_CODE_LENGTH = 20
 NTREES, NBASE, NPERM = 6, 22, 258  # table shapes of retrieve_boundaries
+LUT_BITS = 10  # prefix bits a table entry of the kernel keys on
 
-launches = 0  # CUDA kernel launches made by decode_groups
+launches = 0  # decode_groups calls that launched the CUDA kernels
 
 
 def decode_groups_plain(words: torch.Tensor, group_start: torch.Tensor,
@@ -70,14 +74,15 @@ def decode_groups_plain(words: torch.Tensor, group_start: torch.Tensor,
 def _lib():
     fn = _build.load("huffdec").lbz2t_huffdec
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def decode_groups_cuda(words, group_start, group_tree, base, count, perm):
-    """Launch the CUDA kernel on the current stream (no synchronize)."""
+    """Launch the CUDA kernels on the current stream (no synchronize):
+    the prefix tables, then the decode; one launch counted."""
     global launches
     args = (words, group_start, group_tree, base, count, perm)
     dev = words.device
@@ -96,11 +101,12 @@ def decode_groups_cuda(words, group_start, group_tree, base, count, perm):
     end = torch.empty(G, dtype=torch.int32, device=dev)
     if G == 0:
         return syms, end
+    lut = torch.empty(nt << LUT_BITS, dtype=torch.int16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(words.data_ptr(), group_start.data_ptr(),
                  group_tree.data_ptr(), base.data_ptr(), count.data_ptr(),
-                 perm.data_ptr(), syms.data_ptr(), end.data_ptr(), G, W,
-                 nt, stream)
+                 perm.data_ptr(), lut.data_ptr(), syms.data_ptr(),
+                 end.data_ptr(), G, W, nt, stream)
     if err != 0:
         raise RuntimeError(f"huffdec kernel launch failed: cudaError {err}")
     launches += 1
@@ -152,23 +158,70 @@ def group_inputs(arr: np.ndarray, nbits: int, payload_pos: int):
     return 0, end_pos, meta, inputs
 
 
+def pack_inputs(inputs, out: np.ndarray) -> list[tuple[int, ...]]:
+    """Copy the six int32 inputs of ``decode_groups`` end to end into
+    ``out`` (int32, at least their total size): one upload.  Returns
+    their shapes, for ``unpack_inputs``."""
+    pos = 0
+    for a in inputs:
+        out[pos:pos + a.size] = a.reshape(-1)
+        pos += a.size
+    return [a.shape for a in inputs]
+
+
+def unpack_inputs(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
+    """Views of ``flat`` (1-D) in the shapes ``pack_inputs`` returned."""
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    parts = torch.split(flat[:sum(sizes)], sizes)
+    return [p.view(sh) for p, sh in zip(parts, shapes)]
+
+
+_local = threading.local()  # each decode thread's stream and staging
+
+
+def _staging(device: torch.device, n: int):
+    """This thread's CUDA stream on ``device`` and its pinned int32
+    upload buffer of at least ``n`` words (kept across blocks: a block
+    waits for its stream before the next one refills the buffer)."""
+    st = getattr(_local, "state", None)
+    if st is None or st[0] != device:
+        st = _local.state = [device, torch.cuda.Stream(device),
+                             torch.empty(0, dtype=torch.int32,
+                                         pin_memory=True)]
+    if st[2].numel() < n:
+        st[2] = torch.empty(max(n, 2 * st[2].numel()), dtype=torch.int32,
+                            pin_memory=True)
+    return st[1], st[2]
+
+
 def decode_block_device(arr: np.ndarray, nbits: int, payload_pos: int,
-                        device: torch.device):
+                        device: torch.device, stage=None):
     """One block with its Huffman stage on ``device`` (a resolved
     torch.device); the counterpart of lbzip2_tpu/ops/huffdec.py:79-130.
 
     Host boundary walk -> device group decode -> reconcile cursors ->
     host IMTF + RLE2.  Returns (err, end_pos, bwt, idx, rand) like
-    ``native.retrieve_block``.  On CUDA the work runs on a stream taken
-    for the call and the thread waits on that stream's event only, so
-    concurrent workers do not serialise on a device-wide synchronize."""
+    ``native.retrieve_block``.  On CUDA the six inputs go up as one
+    pinned buffer, on a stream of the calling thread's own (made once),
+    and the thread waits on that stream's event only, so concurrent
+    workers do not serialise on a device-wide synchronize.  ``stage``,
+    if given, is called with (name, seconds) for the boundary walk
+    ("walk_s"), the device stage from upload to download ("huffman_s")
+    and IMTF + RLE2 with the reconcile ("imtf_rle2_s")."""
+    t0 = time.perf_counter()
     err, end_pos, meta, inputs = group_inputs(arr, nbits, payload_pos)
+    t1 = time.perf_counter()
+    if stage is not None:
+        stage("walk_s", t1 - t0)
     if err != 0:
         return err, payload_pos, None, 0, 0
     if device.type == "cuda":
-        stream = torch.cuda.Stream(device)
+        total = sum(a.size for a in inputs)
+        stream, pinned = _staging(device, total)
+        shapes = pack_inputs(inputs, pinned.numpy())
         with torch.cuda.stream(stream):
-            syms, end = decode_groups(*(upload(a, device) for a in inputs))
+            flat = pinned[:total].to(device, non_blocking=True)
+            syms, end = decode_groups(*unpack_inputs(flat, shapes))
             syms, end = to_host(syms), to_host(end)
             done = torch.cuda.Event(blocking=True)
             done.record(stream)
@@ -177,16 +230,22 @@ def decode_block_device(arr: np.ndarray, nbits: int, payload_pos: int,
         syms, end = decode_groups(*(torch.from_numpy(np.require(
             a, requirements="CW")) for a in inputs))
     syms, end = syms.numpy(), end.numpy()
-    # reconcile: the cursor after group g must hit group g+1's start
-    # (the last group ends at EOB mid-group; the host walk bounds it)
-    ng, starts = meta["ngroups"], inputs[1]
-    if ng > 1 and not np.array_equal(end[:ng - 1], starts[1:ng]):
-        return Error.ERR_PREFIX.value, payload_pos, None, 0, 0
-    flat = syms[:ng].reshape(-1)[:meta["nsyms"]].astype(np.uint16)
+    t2 = time.perf_counter()
     try:
-        bwt = native.imtf_rle2(flat, meta["used"])
-    except ValueError:
-        return Error.ERR_OVERFLOW.value, payload_pos, None, 0, 0
+        # reconcile: the cursor after group g must hit group g+1's start
+        # (the last group ends at EOB mid-group; the host walk bounds it)
+        ng, starts = meta["ngroups"], inputs[1]
+        if ng > 1 and not np.array_equal(end[:ng - 1], starts[1:ng]):
+            return Error.ERR_PREFIX.value, payload_pos, None, 0, 0
+        flat_syms = syms[:ng].reshape(-1)[:meta["nsyms"]].astype(np.uint16)
+        try:
+            bwt = native.imtf_rle2(flat_syms, meta["used"])
+        except ValueError:
+            return Error.ERR_OVERFLOW.value, payload_pos, None, 0, 0
+    finally:
+        if stage is not None:
+            stage("huffman_s", t2 - t1)
+            stage("imtf_rle2_s", time.perf_counter() - t2)
     if meta["idx"] >= bwt.size:
         return Error.ERR_BWTIDX.value, payload_pos, None, 0, 0
     return 0, end_pos, bwt, meta["idx"], meta["rand"]

@@ -95,17 +95,21 @@ def _lib():
 
 def _workspace(dev: torch.device, B: int, words: int):
     """The calling thread's scratch (words int32 on the card), its (B,)
-    int32 redo flags in pinned host memory and their numpy view, kept
-    until the thread asks for another size: a call has waited for all
-    it queued on them before it returns, so the thread's next call may
-    take them again and allocates nothing."""
-    key = (dev, B, words)
-    if getattr(_held, "key", None) != key:
-        flags = torch.empty(B, dtype=torch.int32, pin_memory=True)
-        _held.key, _held.tensors = key, (
+    int32 redo flags in pinned host memory and their numpy view: views
+    of buffers the thread keeps and only ever grows.  A call has waited
+    for all it queued on them before it returns, so the thread's next
+    call, at any shape no larger, takes them again and allocates
+    nothing."""
+    held = getattr(_held, "buffers", None)
+    if held is None or held[0].device != dev or held[0].numel() < words \
+            or held[1].numel() < B:
+        words = max(words, 0 if held is None else held[0].numel())
+        flags = torch.empty(max(B, 0 if held is None else held[1].numel()),
+                            dtype=torch.int32, pin_memory=True)
+        _held.buffers = held = (
             torch.empty(words, dtype=torch.int32, device=dev), flags,
             flags.numpy())
-    return _held.tensors
+    return held[0], held[1][:B], held[2][:B]
 
 
 def ibwt_cuda(bwt: torch.Tensor, ns: torch.Tensor,

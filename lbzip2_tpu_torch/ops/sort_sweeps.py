@@ -8,10 +8,13 @@ inside each block every lane takes ``sweeps`` times
 
     kn[r] = k[(r - 1) mod (R / sub)];   k = min(k, kn) ^ (max(k, kn) & 1)
 
-The kernel is ``csrc/sort_sweeps.cu``: each thread keeps a run of PER
-consecutive rows of one lane in registers and passes its last row to
-the next thread through shared memory once a sweep, so device memory is
-read and written once for all sweeps; see the source for the design.
+The kernel is ``csrc/sort_sweeps.cu``: a column's rows lie in the
+registers of a run of lanes of one warp (or of 2 to 32 warps where the
+column is taller), PER consecutive rows a lane,
+and each lane takes its neighbour row from the lane before with one
+shuffle a sweep; the max of a compare-exchange is a + b - min on the
+FMA pipe.  Device memory is read and written once for all sweeps,
+staged through shared memory; see the source for the design.
 
 ``sweeps`` takes the plain version only for a CPU tensor.  For a CUDA
 tensor it launches the kernel or raises.
@@ -26,7 +29,10 @@ import torch
 from lbzip2_tpu_torch import _build
 
 LANES = 128
-_MAX_THREADS = 1024
+# rows a lane holds in registers: the kernel's instances (csrc/
+# sort_sweeps.cu), in CTAs of 8 warps; CTAs of 32 warps take those up to 32
+PERS = (1, 2, 4, 8, 16, 32, 55, 64)
+_WIDE = 32  # warps of a CTA whose columns pass 256 lanes
 
 launches = 0  # CUDA kernel launches made by sweeps / sweeps_cuda
 
@@ -42,31 +48,47 @@ def sweeps_plain(keys: torch.Tensor, sweeps: int, sub: int) -> torch.Tensor:
     return k.reshape(B, R, L)
 
 
-def plan(rows: int) -> tuple[int, int, int]:
+def plan(rows: int) -> tuple[int, int, int, int, int]:
     """Launch plan of the kernel for blocks of ``rows`` rows: (PER rows
-    per thread, T threads per lane column, C lanes per CTA).  PER is the
-    largest power of two up to 64 that divides ``rows``, so T * PER =
-    rows exactly; a CTA holds at most 1024 threads (512 at PER = 64,
-    whose registers need the larger per-thread budget)."""
+    a lane, n lanes a column, wpc warps a column, C columns a CTA, warps
+    a CTA); rows = n * PER, PER in ``PERS``.
+
+    A column fits one warp of a CTA of 8 where some n <= 32 does (the
+    least PER); then C / 8 columns share a warp, as many as fit, up to
+    C = 128.  Else it takes the first n <= 256 lanes of wpc = 2, 4 or 8
+    warps of a CTA of 8 (the largest PER: the fewest warps), C = 8 /
+    wpc; else the first n <= 1024 lanes of 16 or 32 warps of a CTA of
+    32, PER <= 32 (64 registers a thread), C = 32 / wpc.  That takes
+    every row count of at most 1024 lanes of the largest power of two up
+    to 32 that divides it (every prime below 1024, every block of up to
+    32768 rows that 32 divides).  Other row counts (1025, 65536) are
+    refused."""
     if rows <= 0:
         raise ValueError(f"rows per block must be positive, got {rows}")
-    per = min(64, rows & -rows)
-    T = rows // per
-    cap = _MAX_THREADS if per <= 32 else _MAX_THREADS // 2
-    if T > cap:
-        raise ValueError(f"{rows} rows per block: {T} threads of {per} "
-                         f"rows exceed {cap}")
-    C = 32
-    while T * C > cap:
-        C //= 2
-    return per, T, C
+    pers = [p for p in PERS if rows % p == 0]
+    for per in pers:
+        if rows // per <= 32:
+            n, segs = rows // per, 1
+            while 2 * segs * n <= 32 and 2 * segs * 8 <= LANES:
+                segs *= 2
+            return per, n, 1, 8 * segs, 8
+    for warps, most in ((8, 64), (_WIDE, 32)):
+        for per in reversed(pers):
+            n = rows // per
+            if per <= most and n <= 32 * warps:
+                wpc = 2
+                while 32 * wpc < n:
+                    wpc *= 2
+                return per, n, wpc, warps // wpc, warps
+    raise ValueError(f"{rows} rows per block are not n * PER with n <= "
+                     f"{32 * _WIDE} lanes and PER in {PERS[:-2]}")
 
 
 def _lib():
     lib = _build.load("sort_sweeps")
     fn = lib.lbz2t_sort_sweeps
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -93,12 +115,12 @@ def sweeps_cuda(keys: torch.Tensor, sweeps: int, sub: int) -> torch.Tensor:
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
     B, R, _ = keys.shape
-    per, T, C = plan(R // sub)
+    per, n, wpc, C, warps = plan(R // sub)
     out = torch.empty_like(keys)
     fn = _lib()
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = fn(keys.data_ptr(), out.data_ptr(), B, R, sub, per, T, C, sweeps,
-             stream)
+    err = fn(keys.data_ptr(), out.data_ptr(), B, R, sub, per, n, wpc, C,
+             warps, sweeps, stream)
     if err != 0:
         raise RuntimeError(f"sort_sweeps kernel launch failed: "
                            f"cudaError {err}")

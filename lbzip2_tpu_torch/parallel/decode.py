@@ -16,7 +16,8 @@ Two opt-in device stages, in both entry points:
                         on the device (ops/huffdec.py, csrc/huffdec.cu),
                         host IMTF + RLE2
   LBZ2_DEVICE_DECODE=1  inverse BWT of every non-randomised block on the
-                        device, in padded (8, 901120) batches
+                        device, up to 8 blocks a batch, each batch as
+                        many rows as it holds and as wide as its longest
                         (_DeviceIbwtBatcher over ops/ibwt.py,
                         csrc/ibwt.cu), host RLE1 + CRC
 
@@ -24,12 +25,22 @@ Both are off by default, as in the JAX package.  A switched-off stage
 takes the host C path.  With a switch on, ``device="cuda"`` without
 CUDA raises; an error raised by a kernel or its launch propagates out
 of the entry point and never becomes a stream-error verdict.
+
+``last_stats["stage_s"]`` holds the seconds of each stage summed over
+the blocks decoded (speculative candidates included, by all workers,
+so the sum exceeds the wall): with the device stages, the host boundary
+walk (``walk_s``), the Huffman stage from upload to download
+(``huffman_s``), IMTF + RLE2 (``imtf_rle2_s``), the wait for the
+batcher's inverse BWT (``ibwt_s``), RLE1 (``rle1_s``) and the CRC
+(``crc_s``); on the host C path, retrieve (walk, Huffman, IMTF + RLE2:
+``host_retrieve_s``) and inverse BWT + RLE1 + CRC (``host_emit_s``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -50,9 +61,34 @@ EOS_MAGIC = 0x177245385090
 # the JAX package's switches and defaults (parallel/decode.py:224, :231)
 DEVICE_IBWT = os.environ.get("LBZ2_DEVICE_DECODE", "0") == "1"
 DEVICE_HUFF = os.environ.get("LBZ2_DEVICE_HUFF", "0") == "1"
-_IBWT_N = 901120  # padded device row (covers MAX_BLOCK_SIZE)
 
 last_stats: dict | None = None  # device use of the last decompress call
+
+STAGES = ("walk_s", "huffman_s", "imtf_rle2_s", "ibwt_s", "rle1_s", "crc_s",
+          "host_retrieve_s", "host_emit_s")
+
+
+class _StageTimes:
+    """Seconds per decode stage, summed over the blocks of one call by
+    every worker thread."""
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(STAGES, 0.0)
+        self._lock = threading.Lock()
+
+    def add(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.seconds[name] += seconds
+
+    def timed(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.add(name, time.perf_counter() - t0)
+
+    def rounded(self) -> dict:
+        return {k: round(v, 4) for k, v in self.seconds.items()}
 
 
 def scan_magic_bits(data: np.ndarray, magic: int = BLOCK_MAGIC
@@ -144,8 +180,11 @@ class _Request:
 
 
 class _DeviceIbwtBatcher:
-    """Groups concurrent IBWT requests into padded (max_batch, _IBWT_N)
-    device batches, on a CUDA stream of its own.
+    """Groups concurrent IBWT requests into device batches of up to
+    ``max_batch`` rows, on a CUDA stream of its own.  A batch ships the
+    rows it holds at the width its longest row needs (the JAX batcher
+    pads every batch to (8, 901120): 7.2 MB up and down for the 1.5 to
+    4.5 live rows a flush of the card's decoder holds).
 
     Workers block in ``run``; a linger window lets concurrent decoders
     coalesce.  A flush takes at most ``max_batch`` requests, first come
@@ -205,10 +244,10 @@ class _DeviceIbwtBatcher:
                 req.done.set()
 
     def _ibwt(self, reqs: list[_Request]) -> np.ndarray:
-        rows = self.max_batch  # fixed shape, padded as in JAX
-        batch = np.zeros((rows, _IBWT_N), np.uint8)
-        ns = np.ones(rows, np.int32)
-        idxs = np.zeros(rows, np.int32)
+        width = max(req.bwt.size for req in reqs)
+        batch = np.zeros((len(reqs), width), np.uint8)
+        ns = np.empty(len(reqs), np.int32)
+        idxs = np.empty(len(reqs), np.int32)
         for r, req in enumerate(reqs):
             batch[r, :req.bwt.size] = req.bwt
             ns[r] = req.bwt.size
@@ -228,21 +267,24 @@ class _DeviceIbwtBatcher:
 def _decode_candidate(arr: np.ndarray, nbits: int, payload_pos: int,
                       pool: SlotPool | None = None,
                       batcher: _DeviceIbwtBatcher | None = None,
-                      device: torch.device | None = None):
+                      device: torch.device | None = None,
+                      stages: _StageTimes | None = None):
     """Speculatively retrieve + IBWT the block whose payload starts at
     payload_pos (lbzip2_tpu/parallel/decode.py:111-129): the Huffman
     stage on ``device`` when DEVICE_HUFF is on, the host C retrieve
     otherwise; then ``_emit_result``, which takes the batcher's device
     IBWT for a non-randomised block and the host C path for the rest."""
+    stages = stages or _StageTimes()
     if DEVICE_HUFF:
         err, newpos, bwt, idx, rnd = decode_block_device(
-            arr, nbits, payload_pos, device)
+            arr, nbits, payload_pos, device, stages.add)
     else:
-        err, newpos, bwt, idx, rnd = native.retrieve_block(
-            arr, nbits, payload_pos)
+        err, newpos, bwt, idx, rnd = stages.timed(
+            "host_retrieve_s", native.retrieve_block, arr, nbits,
+            payload_pos)
     if err != 0:
         return {"err": err}
-    return _emit_result(bwt, idx, rnd, newpos, pool, batcher)
+    return _emit_result(bwt, idx, rnd, newpos, pool, batcher, stages)
 
 
 def block_payloads(data: bytes) -> list[int]:
@@ -261,21 +303,30 @@ def block_payloads(data: bytes) -> list[int]:
 
 def _emit_result(bwt, idx, rnd, newpos,
                  pool: SlotPool | None = None,
-                 batcher: "_DeviceIbwtBatcher | None" = None):
+                 batcher: "_DeviceIbwtBatcher | None" = None,
+                 stages: _StageTimes | None = None):
     """IBWT + RLE1-expand a retrieved block into result chunks
     (slot-pooled when a SlotPool bounds memory)."""
+    stages = stages or _StageTimes()
     if batcher is not None and not rnd:
         # device IBWT (batched sublist list ranking), host RLE1+CRC
         if not (0 <= idx < bwt.size):
             return {"err": Error.ERR_RUNLEN.value}
-        rle_domain = batcher.run(bwt, int(idx))
-        plain, ok = rle1_decode(rle_domain)
+        rle_domain = stages.timed("ibwt_s", batcher.run, bwt, int(idx))
+        plain, ok = stages.timed("rle1_s", rle1_decode, rle_domain)
         if not ok:
             return {"err": Error.ERR_RUNLEN.value}
-        crc = (native.crc32_block(plain) ^ 0xFFFFFFFF) & 0xFFFFFFFF
+        crc = (stages.timed("crc_s", native.crc32_block, plain)
+               ^ 0xFFFFFFFF) & 0xFFFFFFFF
         return {"err": 0, "end": newpos, "chunks": [plain.tobytes()],
                 "cursor": None, "crc": crc, "size": int(bwt.size),
                 "pooled": False}
+    return stages.timed("host_emit_s", _emit_host, bwt, idx, rnd, newpos,
+                        pool)
+
+
+def _emit_host(bwt, idx, rnd, newpos, pool: SlotPool | None):
+    """The host C inverse BWT, RLE1 and CRC of a retrieved block."""
     if pool is None:
         try:
             plain, crcreg = native.ibwt_emit(bwt, idx, rnd)
@@ -373,12 +424,14 @@ def decompress_parallel(data: bytes, n_workers: int | None = None,
         n_workers = min(32, os.cpu_count() or 1)
     spool = SlotPool(out_slots or 16 * n_workers)
     batcher = _DeviceIbwtBatcher(device=dev) if use_ibwt else None
+    stages = _StageTimes()
     stats = {"blocks": 0, "device_huff": DEVICE_HUFF,
              "ibwt_rows": 0, "ibwt_flushes": 0}
     last_stats = stats
 
     def decode(p):
-        return _decode_candidate(arr, nbits, p + 80, spool, batcher, dev)
+        return _decode_candidate(arr, nbits, p + 80, spool, batcher, dev,
+                                 stages)
 
     candidates = [int(p) for p in scan_magic_bits(arr)]
     out_parts: list[bytes] = []
@@ -452,6 +505,7 @@ def decompress_parallel(data: bytes, n_workers: int | None = None,
     if batcher is not None:
         stats["ibwt_rows"] = batcher.rows
         stats["ibwt_flushes"] = batcher.flushes
+    stats["stage_s"] = stages.rounded()
     return b"".join(out_parts)
 
 
@@ -561,6 +615,7 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
     spool = SlotPool(out_slots or 16 * n_workers)
     dev = resolve(device) if (DEVICE_HUFF or DEVICE_IBWT) else None
     batcher = _DeviceIbwtBatcher(device=dev) if DEVICE_IBWT else None
+    stages = _StageTimes()
     stats = {"blocks": 0, "device_huff": DEVICE_HUFF,
              "ibwt_rows": 0, "ibwt_flushes": 0}
     last_stats = stats
@@ -616,6 +671,7 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
                 not DEVICE_HUFF:
             r = native.ResumableRetriever()
             try:
+                t0 = time.perf_counter()
                 while True:
                     arr, base = sb.snapshot()
                     err, end, size, idx, rnd = r.step(arr, base * 8,
@@ -623,12 +679,14 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
                     if err == Error.MORE.value and sb.extend():
                         continue
                     break
+                stages.add("host_retrieve_s", time.perf_counter() - t0)
                 if err == Error.MORE.value:  # exhausted at true EOF
                     return {"err": Error.ERR_EOF.value}
                 if err != 0:
                     return {"err": err}
                 return {**_emit_result(r.bwt[:size], idx, rnd, 0,
-                                       spool, batcher), "end": end}
+                                       spool, batcher, stages),
+                        "end": end}
             finally:
                 r.close()
         if not speculative:
@@ -638,7 +696,7 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
             arr, base = sb.snapshot()
             res = _decode_candidate(arr, arr.size * 8,
                                     p + 80 - base * 8, spool, batcher,
-                                    dev)
+                                    dev, stages)
             if res["err"] == Error.ERR_EOF.value and not speculative \
                     and sb.extend():
                 continue
@@ -733,5 +791,6 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
     if batcher is not None:
         stats["ibwt_rows"] = batcher.rows
         stats["ibwt_flushes"] = batcher.flushes
+    stats["stage_s"] = stages.rounded()
     total_in = sb.base + len(sb.buf)
     return total_in, total_out

@@ -36,7 +36,6 @@ def default_engine(monkeypatch):
     monkeypatch.setattr(cli, "DEVICE", "cpu")
     monkeypatch.setattr(decode, "DEVICE_HUFF", True)
     monkeypatch.setattr(decode, "DEVICE_IBWT", True)
-    monkeypatch.setattr(decode, "_IBWT_N", 131072)  # level-1 blocks
     handlers = {s: signal.getsignal(s)
                 for s in (signal.SIGINT, signal.SIGTERM)}
     mask = signal.pthread_sigmask(signal.SIG_BLOCK, [])

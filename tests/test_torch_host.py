@@ -259,7 +259,6 @@ def test_decompress_stream_takes_the_device_stages(monkeypatch, switches,
     huff, ibwt_on = switches != "ibwt", switches != "huff"
     monkeypatch.setattr(decode, "DEVICE_HUFF", huff)
     monkeypatch.setattr(decode, "DEVICE_IBWT", ibwt_on)
-    monkeypatch.setattr(decode, "_IBWT_N", 131072)
     calls = {"huff": 0}
     plain = huffdec.decode_groups
 

@@ -88,16 +88,17 @@ def test_reference_block_compares_each_value_with_itself(probe_tool):
 
 
 @pytest.mark.parametrize("rows,want", [
-    (1760, (32, 55, 16)),   # the probe's (32, 7040, 128) at sub 4
-    (7040, (64, 110, 4)),   # the same at sub 1
-    (16, (16, 1, 32)), (64, (64, 1, 32)), (105, (1, 105, 8)),
-    (1, (1, 1, 32)),
+    (1760, (55, 32, 1, 8, 8)),    # the probe's (32, 7040, 128) at sub 4
+    (7040, (64, 110, 4, 2, 8)),   # the same at sub 1: 110 lanes of 4 warps
+    (16, (1, 16, 1, 16, 8)), (64, (2, 32, 1, 8, 8)),
+    (105, (1, 105, 4, 2, 8)), (1, (1, 1, 1, 128, 8)),
 ])
 def test_kernel_plan(rows, want):
-    per, T, C = sort_sweeps.plan(rows)
-    assert (per, T, C) == want
-    assert per * T == rows and 128 % C == 0
-    assert T * C <= (1024 if per <= 32 else 512)
+    per, n, wpc, C, warps = sort_sweeps.plan(rows)
+    assert (per, n, wpc, C, warps) == want
+    assert per * n == rows and per in sort_sweeps.PERS and 128 % C == 0
+    assert n * C // 8 <= 32 if wpc == 1 else \
+        n <= 32 * wpc and wpc * C == warps
 
 
 @pytest.mark.parametrize("rows", [0, 1025, 3 * 1024 * 64])
