@@ -4,11 +4,12 @@
     python3 chip_smoke.py --kernels [--tree DIR] [--profile]
     python3 chip_smoke.py --measure --tree DIR
 
-The second form runs no phase: it builds the six kernels of this
+The second form runs no phase: it builds the eight kernels of this
 checkout (or of the checkout at DIR, whose wrappers have the same
 signatures: run both in turns inside one call to compare two trees),
 holds them against their plain versions on the timed inputs of phases
-3, 4, 8, 9, 12 and 13, and prints their CUDA-event times, with
+3, 4, 8, 9, 12, 13, 14 and 15 (a checkout without the CRC and the bit
+packer times the six it has), and prints their CUDA-event times, with
 --profile each CUDA kernel's device time too, the sweep loop's SASS,
 and the peak of device memory over one text batch through
 chain_payloads, as one JSON line.  The third runs no phase either: it
@@ -138,6 +139,34 @@ Phases (any failure exits non-zero before the last line is printed):
              phase 3, on that phase's BWT batch.)  With --measure also
              the device time of each op of the batch through bwt2_bytes
              and chain_payloads.
+ 14. crc:    the CRC kernel (ops/crc.py::crc32_device) against its plain
+             version, tolerance 0, at n = 0, 1, 31, 32, 33 and 9999 in
+             N = 16384, n = 900000 in N = 901632, a full 901120-byte text
+             block and the 8 MiB limit; the stored CRC of each against the
+             host's; CUDA-event and device times on the text block.  (It
+             and phase 15 run after phase 12, on phase 3's batch.)
+ 15. bitpack: the bit packer (ops/bitpack.py::pack_bits_device) against
+             its plain version, tolerance 0, on random fields of 0 to 32
+             bits, mostly zero-length fields, full-width fields, one
+             field, and the Huffman fields of one text block's
+             _pack_groups, whose words it must reproduce; CUDA-event and
+             device times on those fields.
+ 16. sharded: entry.dryrun_multichip over every visible card at 901120
+             (sharded bwt2, token emit, entropy chain, IBWT decode; every
+             payload against native.encode_payload, the stream through
+             bz2), with the launches of its kernels; then the same four
+             steps over [cuda:0, cuda:0] (two shards, a stream each, on
+             one card) against the unsharded port and
+             native.encode_payload, sharded and unsharded walls in turns.
+ 17. cards:  compress(data, 9, device="cuda") of the phase-6 stream: the
+             engine on every visible card, the same bytes as
+             bin/lbzip2 -9, every card in batch_trace[*]["dev"].
+ 18. multihost: parallel.multihost.compress_multihost in two child
+             processes (gloo on localhost, the point-to-point gather,
+             engine "hybrid" on cuda:0) over a four-block level-9 prefix
+             of the stream: process 0's stream equals the single-host
+             compress; each process's shard went through the card's
+             kernels.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -348,7 +377,7 @@ def bound(nbytes: float, ops: float) -> dict:
     move (each input read once, each output written once) over the
     memory rate, or the integer instructions it needs on this run's
     inputs, one an operation, over INT_OPS_S, whichever is larger.  No
-    single PyTorch call computes any of the six kernels' functions (the
+    single PyTorch call computes any of the eight kernels' functions (the
     EM loop least of all: a data-dependent number of rounds of a packed
     argmin and a Huffman construction), so there is no library time to
     set beside them."""
@@ -1521,9 +1550,10 @@ def cli_phase(few: bytes) -> None:
 
 
 def kernels_only(seed: int, profiled: bool, dev) -> int:
-    """--kernels: the six kernels of the package on the path (MTF
+    """--kernels: the eight kernels of the package on the path (MTF
     ranks, sweeps, Huffman group decode, inverse BWT, code lengths, the
-    EM loop), held against their plain versions (tolerance 0) and timed
+    EM loop, CRC, bit packer; a checkout without the last two times the
+    six it has), held against their plain versions (tolerance 0) and timed
     on the smoke's timed inputs; the sweep loop's SASS; and the peak of
     device memory over one text batch through chain_payloads.  One JSON
     line.  A checkout from before the EM loop moved to the card has no
@@ -1558,14 +1588,29 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
         huffenc.make_code_lengths_rows, huffenc._make_code_lengths_rows,
         (torch.from_numpy(f.reshape(-1, 259)).to(dev),
          torch.from_numpy(np.repeat(a, 6)).to(dev)))
+    try:
+        from lbzip2_tpu_torch.ops import bitpack, crc
+    except ImportError:  # a checkout from before the two kernels
+        bitpack = crc = None
+    if crc is not None:
+        block = torch.from_numpy(np.frombuffer(text[:WIDTH],
+                                               np.uint8).copy()).to(dev)
+        calls["crc32_text_901120"] = (
+            lambda b: crc.crc32_device(b, WIDTH),
+            lambda b: crc.crc32_plain(b, WIDTH), (block,))
+        values, nbits, _, _ = pack_groups_fields(batch, dev)
+        calls["bitpack_huffman_text_block"] = (
+            lambda v, ln: bitpack.pack_bits_device(v, ln, v.numel()),
+            lambda v, ln: bitpack.pack_bits_plain(v, ln, v.numel()),
+            (values, nbits))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
         got, want = kernel(*a), plain(*a)
         torch.cuda.synchronize()
         res["max_abs_err"][name] = max_err_of(got, want)
-        res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if
-                                  name.startswith(("code", "huff")) else 10)
+        res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if name.startswith(
+            ("code", "huff", "crc", "bitpack")) else 10)
         if profiled:
             res.setdefault("kernels_us", {})[name] = device_us(
                 lambda: kernel(*a))
@@ -1716,6 +1761,347 @@ def stream_tree(seed: int, dev) -> int:
     return 0
 
 
+CRC_LIMIT = 8 << 20  # the CRC kernel's widest block (JAX's 18 levels)
+
+
+def crc_phase(text: bytes, dev) -> dict:
+    """14. The CRC kernel against its plain version and the host CRC."""
+    from lbzip2_tpu_torch.core import crc32
+    from lbzip2_tpu_torch.ops import crc
+
+    rng = np.random.default_rng(14)
+    cases = {f"n{n}_N16384": (rng.integers(0, 256, 16384, dtype=np.uint8),
+                              n) for n in (0, 1, 31, 32, 33, 9999)}
+    cases["n900000_N901632"] = (
+        rng.integers(0, 256, 901632, dtype=np.uint8), 900000)
+    textblk = np.frombuffer(text[:WIDTH], np.uint8).copy()
+    cases["text_901120"] = (textblk, WIDTH)
+    cases["n8MiB"] = (rng.integers(0, 256, CRC_LIMIT, dtype=np.uint8),
+                      CRC_LIMIT)
+    max_err = 0
+    for name, (blk, n) in cases.items():
+        b = torch.from_numpy(blk).to(dev)
+        err = max_err_of(crc.crc32_device(b, n), crc.crc32_plain(b, n))
+        stored = crc.crc32_block_device(blk, n, device=dev)
+        assert stored == crc32.crc_of(blk[:n]), f"crc {name}: stored CRC"
+        max_err = max(max_err, err)
+        log(f"crc kernel vs plain [{name}]: max_abs_err {err}, stored "
+            f"{stored:#010x}")
+        assert err == 0, f"CRC kernel disagrees with plain on {name}"
+    b = torch.from_numpy(textblk).to(dev)
+    ms_k = cuda_ms(lambda: crc.crc32_device(b, WIDTH), 200)
+    ms_p = cuda_ms(lambda: crc.crc32_plain(b, WIDTH), 3)
+    us = device_us(lambda: crc.crc32_device(b, WIDTH))
+    log(f"crc32 (901120-byte text block): kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.3f} ms; device us {json.dumps(us)}")
+    # the block read once and the register written; one lookup a byte
+    return {"name": "crc32", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/crc32.cu",
+            "replaces": "lbzip2_tpu/ops/crc.py:49", "launches": 0,
+            "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p,
+            "device_us": us, **bound(WIDTH + 8, WIDTH)}
+
+
+def pack_groups_fields(batch, dev):
+    """The fields one text block's ``_pack_groups`` packs: a zero field
+    of start_bit bits, then every code of every valid group; and that
+    call's words and total bits.  Taken from chain_payloads on row 0 of
+    the BWT batch (bwt, ns, cmaps, primary)."""
+    from lbzip2_tpu_torch.core.constants import GROUP_SIZE
+    from lbzip2_tpu_torch.ops import chain
+
+    bwt, ns, cmaps, primary = batch
+    got = {}
+    real = chain._pack_groups
+
+    def spy(*a):
+        got["args"], got["out"] = a, real(*a)
+        return got["out"]
+
+    chain._pack_groups = spy
+    try:
+        chain.chain_payloads(bwt[:1].contiguous(), ns[:1], cmaps[:1],
+                             primary[:1].cpu().numpy().astype(np.int32),
+                             np.zeros(1, np.uint32))
+    finally:
+        chain._pack_groups = real
+    mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, _ = got["args"]
+    words, total = got["out"]
+    NP = mtfv.shape[1]
+    G = -(-NP // GROUP_SIZE)
+    lanes = torch.arange(G * GROUP_SIZE, device=dev)
+    padded = torch.nn.functional.pad(mtfv[0], (0, G * GROUP_SIZE - NP))
+    padded = torch.where(lanes < nm[0], padded, ninuse[0] + 2)
+    g = int(ngroups[0])
+    groups = padded.reshape(G, GROUP_SIZE)[:g].long()
+    tree = sel[0, :g].long()[:, None]
+    values = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                        codes[0][tree, groups].reshape(-1).long()])
+    nbits = torch.cat([start_bit[:1].int(),
+                       lens[0][tree, groups].reshape(-1).int()])
+    return values.contiguous(), nbits.contiguous(), words[0], int(total[0])
+
+
+def bitpack_phase(batch, dev) -> dict:
+    """15. The bit packer against its plain version, and on one text
+    block's Huffman fields against that block's ``_pack_groups``."""
+    from lbzip2_tpu_torch.ops import bitpack
+
+    rng = np.random.default_rng(15)
+    N = 100_000
+    lens = rng.integers(0, 33, N).astype(np.int32)
+    vals = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.int64)
+    zero = np.where(rng.random(N) < 0.9, 0, lens).astype(np.int32)
+    cases = {"random_0_to_32_bits": (vals, lens, N - 7),
+             "zero_length_fields": (vals, zero, N),
+             "full_width_fields": (vals, np.full(N, 32, np.int32), N),
+             "one_field": (vals[:1], lens[:1] | 1, 1)}
+    cases = {k: (torch.from_numpy(v).to(dev), torch.from_numpy(ln).to(dev),
+                 nf) for k, (v, ln, nf) in cases.items()}
+    values, nbits, words_want, total_want = pack_groups_fields(batch, dev)
+    cases["huffman_text_block"] = (values, nbits, values.numel())
+    max_err = 0
+    for name, (v, ln, nf) in cases.items():
+        got = bitpack.pack_bits_device(v, ln, nf)
+        err = max_err_of(got, bitpack.pack_bits_plain(v, ln, nf))
+        max_err = max(max_err, err)
+        log(f"bitpack kernel vs plain [{name}]: {v.numel()} fields, "
+            f"{int(got[1])} bits, max_abs_err {err}")
+        assert err == 0, f"bitpack kernel disagrees with plain on {name}"
+    words, total = bitpack.pack_bits_device(values, nbits, values.numel())
+    nw = -(-total_want // 32)
+    assert int(total) == total_want and torch.equal(
+        words[:nw], words_want[:nw]) and not words[nw:].any(), \
+        "the packed Huffman fields differ from _pack_groups"
+    n = values.numel()
+    ms_k = cuda_ms(lambda: bitpack.pack_bits_device(values, nbits, n), 50)
+    ms_p = cuda_ms(lambda: bitpack.pack_bits_plain(values, nbits, n), 5)
+    us = device_us(lambda: bitpack.pack_bits_device(values, nbits, n))
+    log(f"bitpack ({n} Huffman fields of a text block, {total_want} bits, "
+        f"the same words as _pack_groups): kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.3f} ms; device us {json.dumps(us)}")
+    # values int64 and lengths int32 in, int64 words and the total out;
+    # a field takes at least one operation
+    return {"name": "bitpack", "route": "cuda",
+            "source": "lbzip2_tpu_torch/csrc/bitpack.cu",
+            "replaces": "lbzip2_tpu/ops/bitpack.py:31", "launches": 0,
+            "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p,
+            "device_us": us, **bound(n * (8 + 4 + 8) + 4, n)}
+
+
+def reset_counts() -> None:
+    """Set the launch counts of the kernels the sharded and engine paths
+    run to 0, just before a path runs (read_counts just after)."""
+    from lbzip2_tpu_torch.ops import huffenc, ibwt, mtf_pallas
+
+    mtf_pallas.launches = huffenc.em_launches = huffenc.launches = 0
+    ibwt.launches = 0
+
+
+def read_counts() -> dict:
+    from lbzip2_tpu_torch.ops import huffenc, ibwt, mtf_pallas
+
+    return {"mtf_ranks": mtf_pallas.launches, "em_chain":
+            huffenc.em_launches, "code_lengths": huffenc.launches,
+            "ibwt": ibwt.launches}
+
+
+def sharded_phase(dev) -> dict:
+    """16. dryrun_multichip over every card at 901120; then the sharded
+    encode, token emit, chain and decode over [cuda:0, cuda:0] (two
+    shards, a stream each, on one card) against the unsharded port and
+    native.encode_payload, each path's wall in turns."""
+    from lbzip2_tpu_torch import entry, native
+    from lbzip2_tpu_torch.core import crc32
+    from lbzip2_tpu_torch.ops import bwt2, chain, ibwt
+    from lbzip2_tpu_torch.parallel import sharding
+
+    count = torch.cuda.device_count()
+    reset_counts()
+    t0 = time.time()
+    res = entry.dryrun_multichip(count, dev.type, WIDTH)
+    wall = time.time() - t0
+    counts = read_counts()
+    log(f"sharded: dryrun_multichip({count}) over {count} card(s) at "
+        f"{WIDTH}: {wall:.2f} s, {json.dumps(res)}; launches "
+        f"{json.dumps(counts)}")
+    assert counts["mtf_ranks"] and counts["em_chain"] and counts["ibwt"], \
+        f"the dry run missed a kernel of its path: {counts}"
+    blocks, ns, ms, raws, cmaps, rle_rows = entry.dryrun_blocks(4, WIDTH)
+    cmaps = np.stack([np.asarray(c, np.uint8) for c in cmaps])
+    crcs = np.asarray([crc32.crc_of(r) for r in raws], np.uint32)
+    mesh = [dev, dev]
+
+    def step(marks):
+        """Mark the end of a step: its device work done."""
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    def sharded(marks):
+        rows, prim = sharding.encode_batch_sharded_v2(blocks, ns, ms, mesh)
+        step(marks)
+        tok = sharding.encode_batch_sharded_tokens(blocks, ns, ms, mesh)
+        step(marks)
+        pay = chain.chain_payloads(rows, ns, cmaps, prim.astype(np.int32),
+                                   crcs, mesh_axis=(mesh, sharding.AXIS))
+        step(marks)
+        dec = sharding.decode_batch_sharded(rows, ns, prim, mesh)
+        step(marks)
+        return rows, prim, tok, pay, dec
+
+    def unsharded(marks):
+        B = len(ns)
+        up = [torch.from_numpy(a).to(dev) for a in (blocks, ns, ms)]
+        packed, prim = bwt2.bwt2_full(*up)
+        rows = packed.view(torch.uint8)
+        step(marks)
+        tok, raw, cnt, tprim = bwt2.bwt2_tokens(*up)
+        tok = (tok.cpu().numpy().view(np.uint16).reshape(B, -1),
+               cnt.cpu().numpy(), raw.cpu().numpy().view(np.uint8)
+               .reshape(B, -1), tprim.cpu().numpy())
+        step(marks)
+        pay = chain.chain_payloads(rows, ns, cmaps, prim.cpu().numpy(),
+                                   crcs)
+        step(marks)
+        dec = ibwt.ibwt_rows(rows, up[1], prim).cpu().numpy()
+        step(marks)
+        return (rows.cpu().numpy(), prim.cpu().numpy(), tok, pay, dec)
+
+    steps = ("bwt2_full", "bwt2_tokens", "chain_payloads", "ibwt")
+    walls = {"sharded_2x_cuda0": [], "unsharded_cuda0": []}
+    outs = {}
+    for name in ("sharded_2x_cuda0", "unsharded_cuda0", "unsharded_cuda0",
+                 "sharded_2x_cuda0"):
+        fn = sharded if name.startswith("sharded") else unsharded
+        torch.cuda.synchronize()
+        marks = [time.time()]
+        outs[name] = fn(marks)
+        walls[name].append({"s": marks[-1] - marks[0], **{
+            k: b - a for k, a, b in zip(steps, marks, marks[1:])}})
+    (rows, prim, tok, pay, dec), (rows1, prim1, tok1, pay1, dec1) = \
+        outs["sharded_2x_cuda0"], outs["unsharded_cuda0"]
+    assert np.array_equal(prim, prim1) and np.array_equal(tok[3], prim1)
+    assert np.array_equal(tok[1], tok1[1])
+    for b in range(len(ns)):
+        n = ns[b]
+        assert np.array_equal(rows[b, :n], rows1[b, :n]), f"bwt row {b}"
+        c = min(int(tok[1][b]), tok[0].shape[1])
+        assert np.array_equal(tok[0][b, :c], tok1[0][b, :c]), f"tokens {b}"
+        assert np.array_equal(tok[2][b, :n], tok1[2][b, :n]), f"raw {b}"
+        want = bytes(native.encode_payload(rows[b, :n], cmaps[b],
+                                           int(prim[b]), int(crcs[b]), 8))
+        assert pay[b] == pay1[b] == want, f"payload row {b}"
+        assert np.array_equal(dec[b, :n], dec1[b, :n]) and \
+            np.array_equal(dec[b, :n], rle_rows[b]), f"decode row {b}"
+    log(f"sharded over [cuda:0, cuda:0], 4 blocks at {WIDTH}: equal to the "
+        f"unsharded port and native.encode_payload; walls (s, in turns) "
+        f"{json.dumps(walls)}")
+    return {"cards": count, "dryrun_s": wall, "dryrun": res,
+            "launches": counts, "walls": walls}
+
+
+def engine_cards_phase(data: bytes, ref: bytes, dev) -> dict:
+    """17. compress with device="cuda": every visible card, batch i on
+    card i mod D."""
+    from lbzip2_tpu_torch.codec import encoder
+
+    count = torch.cuda.device_count()
+    reset_counts()
+    t0 = time.time()
+    out = encoder.compress(data, 9, device=dev.type)  # "cuda": every card
+    dt = time.time() - t0
+    counts = read_counts()
+    devs = [t["dev"] for t in encoder.last_stats["batch_trace"]]
+    log(f"engine on every card ({count}): {dt:.3f} s = "
+        f"{len(data) / dt / 1e6:.3f} MB/s, batch devices {devs}, launches "
+        f"{json.dumps(counts)}")
+    assert out == ref, "compress over every card differs from bin/lbzip2"
+    assert set(devs) == set(range(count)), f"cards driven: {set(devs)}"
+    assert counts["mtf_ranks"] and counts["em_chain"], counts
+    return {"cards": count, "s": dt, "batch_devs": devs, "launches": counts}
+
+
+MULTIHOST_WORKER = r"""
+import json, sys
+import torch
+from lbzip2_tpu_torch.ops import huffenc, mtf_pallas
+from lbzip2_tpu_torch.parallel import multihost as MH
+addr, pid, nproc, src, dst, dev = sys.argv[1:7]
+pid, nproc = int(pid), int(nproc)
+MH.initialize_distributed(addr, nproc, pid)
+data = open(src, "rb").read()
+a, b = MH.shard_bounds(len(data), 9, nproc, pid)
+mtf_pallas.launches = huffenc.em_launches = 0
+out = MH.compress_multihost(data[a:b], 9, engine="hybrid", device=dev)
+if pid == 0:
+    open(dst, "wb").write(out)
+print(json.dumps({"pid": pid, "shard": [a, b], "mtf_ranks":
+                  mtf_pallas.launches, "em_chain": huffenc.em_launches,
+                  "stream": out is not None}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multihost_phase(data: bytes, dev) -> dict:
+    """18. compress_multihost in two child processes (gloo on
+    localhost, engine "hybrid" on cuda:0, the point-to-point gather)
+    over a four-block level-9 prefix: process 0's stream must equal the
+    single-host compress of the same bytes."""
+    import tempfile
+
+    from lbzip2_tpu_torch.codec import encoder
+
+    prefix = data[:4 * BLOCK]
+    single = encoder.compress(prefix, 9, device=dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out.bz2")
+        with open(src, "wb") as f:
+            f.write(prefix)
+        addr = f"127.0.0.1:{free_port()}"
+        env = {**os.environ, "LBZ2_MULTIHOST_PORT": str(free_port()),
+               "LBZ2_MULTIHOST_EXCHANGE": "p2p"}
+        env.pop("LBZ2_HOST0_ADDR", None)
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MULTIHOST_WORKER, addr, str(i), "2", src,
+             dst, str(dev)], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        recs = []
+        for p, (so, se) in zip(procs, outs):
+            assert p.returncode == 0, \
+                f"multihost child exited {p.returncode}: " \
+                f"{se.decode()[-3000:]}"
+            recs.append(json.loads(so.decode().strip().splitlines()[-1]))
+        with open(dst, "rb") as f:
+            stream = f.read()
+    log(f"multihost: 2 processes, {len(prefix)} bytes, {wall:.2f} s; "
+        f"{json.dumps(recs)}")
+    assert stream == single, "the two-process stream differs from one host"
+    assert bz2.decompress(stream) == prefix
+    assert all(r["mtf_ranks"] and r["em_chain"] for r in recs), \
+        f"a process's shard missed the card's kernels: {recs}"
+    return {"s": wall, "processes": recs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1726,7 +2112,7 @@ def main(argv=None) -> int:
                     "with their stage times), and the decode phase under "
                     "the profiler; with --tree only the stream runs")
     ap.add_argument("--kernels", action="store_true",
-                    help="only hold the six kernels against their plain "
+                    help="only hold the eight kernels against their plain "
                     "versions and time them on the smoke's timed inputs")
     ap.add_argument("--tree", metavar="DIR",
                     help="with --kernels or --measure: take the package "
@@ -1757,7 +2143,8 @@ def main(argv=None) -> int:
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
-    from lbzip2_tpu_torch.ops import chain, huffenc, mtf_pallas, sort_sweeps
+    from lbzip2_tpu_torch.ops import (bitpack, chain, crc, huffenc,
+                                      mtf_pallas, sort_sweeps)
     from lbzip2_tpu_torch.tools import sort_probe
 
     dev = torch.device("cuda", 0)
@@ -1787,6 +2174,10 @@ def main(argv=None) -> int:
     text_h = text_symbols(text_batch, dev)
     em_record, text_args = em_phase(text_h, text_batch, dev)
     lengths_record = code_lengths_phase(text_args, dev)
+    crc_record = crc_phase(text, dev)
+    bitpack_record = bitpack_phase(text_batch, dev)
+    crc_record["smoke_launches"] = crc.launches
+    bitpack_record["smoke_launches"] = bitpack.launches
     if args.measure:
         op_table(text, text_batch, dev)
     del text_batch, text_h, text_args
@@ -1823,11 +2214,14 @@ def main(argv=None) -> int:
     for name, (mod, fn) in plain_fns.items():
         setattr(mod, name, counted(name, fn))
     mtf_pallas.launches = huffenc.launches = huffenc.em_launches = 0
+    crc.launches = bitpack.launches = 0
     t0 = time.time()
     out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
     launches, mstep_launches, em_launches = \
         mtf_pallas.launches, huffenc.launches, huffenc.em_launches
+    crc_record["launches"] = crc.launches  # not on the main path: 0
+    bitpack_record["launches"] = bitpack.launches
     for name, (mod, fn) in plain_fns.items():
         setattr(mod, name, fn)
     stats = encoder.last_stats
@@ -1914,12 +2308,17 @@ def main(argv=None) -> int:
     huff_record["launches"] = decoded["chain_stream"]["huffdec_launches"]
     ibwt_record["launches"] = decoded["chain_stream"]["ibwt_launches"]
     cli_phase(data[:3 * BLOCK])
+    sharded = sharded_phase(dev)
+    engine_cards_phase(data, ref, dev)
+    multihost_phase(data, dev)
 
     record["launches"] = launches
     lengths_record["launches"] = mstep_launches
     em_record["launches"] = em_launches
+    ibwt_record["sharded_launches"] = sharded["launches"]["ibwt"]
     print(json.dumps({"kernels": [record, sweep_record, huff_record,
-                                  ibwt_record, lengths_record, em_record]}))
+                                  ibwt_record, lengths_record, em_record,
+                                  crc_record, bitpack_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,15 +31,18 @@ The device engine, in both modes (``_DEVICE_CHAIN``, set from
                      the token capacity, its raw bytes) to the host
                      workers' C entropy coder
 
-Both halves of every batch run on one CUDA stream owned by the pool, so
-the caching allocator never hands out memory another stream still
-reads.  One fetch thread finishes the batches in order: a second one
-measured no faster on an H100 once the M-step was a kernel (PERF.md).
+The engine drives every device it is given (all visible cards for
+``device="cuda"``, as the JAX engine drives every local device): batch
+i goes to device i mod D, with one more batch in flight for each device
+past the first.  Both halves of a batch run on its device's CUDA stream,
+owned by the pool, with that device current, so the caching allocator
+never hands out memory another stream still reads.  One fetch thread
+finishes the batches in order: a second one measured no faster on an
+H100 once the M-step was a kernel (PERF.md).
 """
 
 from __future__ import annotations
 
-import contextlib
 import heapq
 import os
 import queue
@@ -52,8 +55,8 @@ import torch
 from lbzip2_tpu_torch import native
 from lbzip2_tpu_torch.core import crc32
 from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
-from lbzip2_tpu_torch.device import (record_event, resolve, to_host,
-                                     upload, wait_event)
+from lbzip2_tpu_torch.device import (on, record_event, resolve_all,
+                                     to_host, upload, wait_event)
 from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens
 from lbzip2_tpu_torch.ops.chain import chain_payloads
 from lbzip2_tpu_torch.ref import rle1
@@ -252,11 +255,12 @@ class _EdfQueue:
 
 class _TorchPool:
     """Hybrid scheduler (device head-consumer + host tail-stealers)
-    whose device engine runs on ``device``, in chain mode or token mode
-    as ``_DEVICE_CHAIN`` says when the pool is made."""
+    whose device engine runs on ``device`` (one, or a list it
+    round-robins batches over), in chain mode or token mode as
+    ``_DEVICE_CHAIN`` says when the pool is made."""
 
     def __init__(self, buf, blocks, cluster_factor, host_workers,
-                 use_device, device: torch.device):
+                 use_device, device: torch.device | list[torch.device]):
         self.buf = buf
         self.blocks = blocks
         self.cf = cluster_factor
@@ -289,10 +293,12 @@ class _TorchPool:
                       "periodic_blocks": 0, "stale_rows": 0,
                       "host_idle_s": 0.0, "device_batches": [],
                       "batch_trace": [], "t0": time.time()}
-        self.device = device
+        self.devices = list(device) if isinstance(device, (list, tuple)) \
+            else [device]
         self.chain = _DEVICE_CHAIN
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        # a stream of its own on each device (a card listed twice too)
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.devices]
         self._engines: list[threading.Thread] = []   # device + host threads
         self._fetcher: threading.Thread | None = None  # the device's
 
@@ -413,25 +419,32 @@ class _TorchPool:
             self.device_done = True
             self.entropy_q.close()  # wake idle workers for shutdown
 
-    def _on_stream(self):
-        return (torch.cuda.stream(self.stream) if self.stream is not None
-                else contextlib.nullcontext())
+    def _on(self, slot: int):
+        """Device ``slot`` current and its stream in force."""
+        return on(self.devices[slot], self.streams[slot])
+
+    def inflight_cap(self) -> int:
+        """Batches the dispatch thread keeps in flight: 1 until the first
+        batch lands or warm_device() ran, then _INFLIGHT and one more
+        for each device past the first (JAX codec/encoder.py:423)."""
+        if self.stats["device_batches"] or _warmed:
+            return _INFLIGHT + len(self.devices) - 1
+        return 1
 
     def _device_pipeline(self):
-        """Claim, prep, upload and dispatch batches; the fetch worker
-        finishes them in order.  Depth 1 until the first batch
-        completes or warm_device() ran, then up to _INFLIGHT batches in
-        flight."""
+        """Claim, prep, upload and dispatch batches, batch i to device
+        i mod D; the fetch worker finishes them in order, each on its
+        batch's device."""
         _GATE.wait_idle()  # don't queue behind a previous pool's tail
         self._fetcher = threading.Thread(target=self._fetch_worker,
                                          name="lbz2-fetch", daemon=True)
         self._fetcher.start()
+        disp = 0  # batches dispatched
         try:
             while not (self.abandoned or self.complete):
                 if self.error is not None:
                     break
-                cap = _INFLIGHT \
-                    if (self.stats["device_batches"] or _warmed) else 1
+                cap = self.inflight_cap()
                 with self.fetch_cv:
                     if self.fetch_pending >= cap:
                         self.fetch_cv.wait(timeout=_WAKE_S)
@@ -454,10 +467,14 @@ class _TorchPool:
                     continue
                 ids, spans, batch, ns, ms, tele = built
                 tele["claimed_t"] = claimed_t
+                slot = disp % len(self.devices)
+                disp += 1
+                tele["dev"] = slot
+                dev = self.devices[slot]
                 t0 = time.time()
-                with self._on_stream():
-                    args = (upload(batch, self.device),
-                            upload(ns, self.device), upload(ms, self.device))
+                with self._on(slot):
+                    args = (upload(batch, dev), upload(ns, dev),
+                            upload(ms, dev))
                     if self.chain:
                         outs = bwt2_bytes(*args)
                     else:
@@ -466,12 +483,12 @@ class _TorchPool:
                         # rows are fetched only past the token capacity
                         outs = (to_host(tokens), raw, to_host(counts),
                                 to_host(primary))
-                    outs += (record_event(self.device),)
+                    outs += (record_event(dev),)
                 tele["dispatch_s"] = round(time.time() - t0, 3)
                 gen = _GATE.inc()
                 with self.q_lock:
                     self.fetch_pending += 1
-                self.fetch_q.put((ids, spans, outs, tele, gen))
+                self.fetch_q.put((ids, spans, outs, tele, slot, gen))
             # drain: the fetch worker finishes in the background; stop
             # early when the stream completes, the watchdog fires, or the
             # fetch worker failed (its error is the pool's result)
@@ -515,10 +532,10 @@ class _TorchPool:
                     # entropy stage (this also ends the pool's run sooner)
                     self.stats["stale_rows"] += len(item[0])
                     continue
-                with self._on_stream():
+                with self._on(item[-2]):  # the batch's device
                     fetch = self._fetch_chain if self.chain \
                         else self._fetch_tokens
-                    fetch(*item[:-1])
+                    fetch(*item[:-2])
             except Exception as e:  # recorded; run() re-raises it
                 if not (self.abandoned or self.complete):
                     self.fail(e)
@@ -846,17 +863,25 @@ def device_eligible(data: bytes | np.ndarray, level: int = 9,
 
 
 def warm_device(rows=(_BATCH,), bucket: int = _BUCKETS[-1],
-                device: str | torch.device = "cuda") -> float:
+                device: str | torch.device | list = "cuda") -> float:
     """Run the device engine of the mode in force (``_DEVICE_CHAIN``)
     once per (rows, bucket) shape on tiny Lyndon rows: the whole chain
     (building the CUDA kernels), or the token BWT and its copies to
     pinned memory.  Warms the allocator and the math libraries outside a
     timed stream; a stream ships batches of 1 to ``_BATCH`` rows, and no
     shape needs compiling, so the widest batch warms the most memory.
+    Every device the engine would drive for ``device`` is warmed.
     Returns seconds spent."""
     global _warmed
-    dev = resolve(device)
     t0 = time.time()
+    for dev in resolve_all(device):
+        with on(dev):
+            _warm_one(rows, bucket, dev)
+    _warmed = True
+    return time.time() - t0
+
+
+def _warm_one(rows, bucket: int, dev: torch.device) -> None:
     for r in sorted(set(rows)):
         batch = np.zeros((r, bucket), np.uint8)
         batch[:, 3] = 1  # R = 0001: a genuine Lyndon row of length 4
@@ -877,8 +902,6 @@ def warm_device(rows=(_BATCH,), bucket: int = _BUCKETS[-1],
         chain_payloads(bwt, ns, cmaps, idxs, crcs, _force_full_pack=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    _warmed = True
-    return time.time() - t0
 
 
 def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
@@ -886,16 +909,18 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
                            sequential_split: bool = False,
                            entropy_workers: int | None = None,
                            use_device: bool | None = None,
-                           device: str | torch.device = "cuda"
+                           device: str | torch.device | list = "cuda"
                            ) -> tuple[list[bytes], list[int]]:
-    """Encode all blocks with the hybrid pool on ``device``; returns
-    (payloads, stored block CRCs) in block order.  The host C kernels
-    (``lbzip2_tpu_torch.native``) are required: the device engine runs
-    ``lyndon_prep``, and ``chain_finish`` or the token entropy coder."""
+    """Encode all blocks with the hybrid pool, its device engine on the
+    devices ``device`` names (``device.resolve_all``: ``"cuda"`` is every
+    visible card); returns (payloads, stored block CRCs) in block
+    order.  The host C kernels (``lbzip2_tpu_torch.native``) are
+    required: the device engine runs ``lyndon_prep``, and
+    ``chain_finish`` or the token entropy coder."""
     global last_stats
     if not 1 <= level <= 9:
         raise ValueError(f"level must be 1..9, got {level}")
-    dev = resolve(device)
+    devs = resolve_all(device)
     if not native.native_available():
         raise RuntimeError("lbzip2_tpu_torch.native is not available: the "
                            "device engine needs its host C kernels")
@@ -912,7 +937,7 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
     if use_device is None:
         use_device = _DEVICE
     pool = _TorchPool(buf, blocks, cluster_factor, entropy_workers,
-                      use_device, dev)
+                      use_device, devs)
     last_stats = pool.stats
     payloads, crcs = [], []
     for payload, crc_stored in pool.run():
@@ -926,9 +951,10 @@ def compress(data: bytes | np.ndarray, level: int = 9,
              sequential_split: bool = False,
              entropy_workers: int | None = None,
              use_device: bool | None = None,
-             device: str | torch.device = "cuda") -> bytes:
+             device: str | torch.device | list = "cuda") -> bytes:
     """Compress into a .bz2 stream on the hybrid pool with the device
-    engine on ``device``.  Bit-identical to the JAX package's compress
+    engine on the devices ``device`` names (every visible card for
+    ``"cuda"``).  Bit-identical to the JAX package's compress
     and to the host C pipeline."""
     payloads, crcs = compress_blocks_hybrid(
         data, level, cluster_factor, sequential_split, entropy_workers,

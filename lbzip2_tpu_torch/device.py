@@ -7,6 +7,8 @@ pass ``"cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -24,6 +26,35 @@ def resolve(device: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def resolve_all(device) -> list[torch.device]:
+    """The devices an engine drives: every visible card for ``"cuda"``
+    without an index (as the JAX engine drives ``jax.local_devices()``),
+    the one named by ``"cuda:k"`` or ``"cpu"``, or each of a list (a
+    test passes several logical CPU devices, or a card twice)."""
+    if isinstance(device, (list, tuple)):
+        return [resolve(d) for d in device]
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        resolve(dev)  # raises without CUDA
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [resolve(dev)]
+
+
+@contextlib.contextmanager
+def on(dev: torch.device, stream: torch.cuda.Stream | None = None):
+    """``dev`` the current device and ``stream`` the current stream, on a
+    card (nothing on the CPU): the port's kernels launch on the
+    runtime's current device, and their wrappers on its current
+    stream."""
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev), (torch.cuda.stream(stream) if stream
+                                  is not None else contextlib.nullcontext()):
+        yield
 
 
 def upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:

@@ -25,6 +25,7 @@ from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
                                           num_trees_for)
 from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
 from lbzip2_tpu_torch.ops.rle2 import _rle2_batch
+from lbzip2_tpu_torch.parallel.sharding import run_shards
 
 WIDTH = MAX_ALPHA_SIZE + 1  # 259: symbols 0..257 + per-row dummy `as`
 _SLOT_WORDS = 32            # 1024 bits >= 50 codes * 20 bits + padding
@@ -247,7 +248,7 @@ def _flatten_download(words: torch.Tensor, ends_dev: torch.Tensor,
 def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
                    cluster_factor: int = 8, pack_w: int = PACK_W,
                    _force_full_pack: bool = False,
-                   times: dict | None = None):
+                   times: dict | None = None, mesh_axis=None):
     """Drive the device entropy chain for one resolved BWT batch.
 
     bwt_dev: (B, N) uint8 tensor of BWT rows on the compute device;
@@ -255,11 +256,24 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
     B payload byte strings, None for rows that exceed the pack width
     (the caller re-encodes those on the host).
 
+    mesh_axis=(devices, axis) shards the batch (lbzip2_tpu/ops/chain.py
+    :455-460): the rows (bwt_dev a tensor anywhere or a host array) are
+    split over the devices as ``parallel/sharding.run_shards`` splits
+    them, each shard's auxiliary arrays follow its rows, one chain runs
+    a shard on its own stream, and the payloads come back in row order
+    (``times["shards"]``: each shard's stage times).
+
     Device: MTF + RLE2 + EM + group bit-pack.  Host (C): initial trees,
     final code assignment and headers, stream splice.  Each download
     (``.cpu()``) is the wait on the device; the EM loop runs between two
     of them with nothing read on the host (``times["em_iters"]`` is its
     count of E-steps, downloaded with its outputs)."""
+
+    if mesh_axis is not None:
+        return _chain_sharded(bwt_dev, ns, cmaps, idxs, crcs, mesh_axis[0],
+                              times, cluster_factor=cluster_factor,
+                              pack_w=pack_w,
+                              _force_full_pack=_force_full_pack)
 
     def _mark(key, t0):
         if times is not None:
@@ -352,3 +366,19 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
         out.append(buf.tobytes())
     _mark("splice", t0)
     return out
+
+
+def _chain_sharded(bwt, ns, cmaps, idxs, crcs, devices, times, **kw):
+    """``chain_payloads`` of each shard of the rows on its device."""
+    def shard(dev, rows, *aux):
+        rows = rows.to(dev) if isinstance(rows, torch.Tensor) else \
+            upload(np.ascontiguousarray(rows, np.uint8), dev)
+        mine = {} if times is not None else None
+        return chain_payloads(rows, *aux, times=mine, **kw), mine
+
+    parts = run_shards(devices, shard, bwt, np.asarray(ns, np.int32),
+                       np.asarray(cmaps, np.uint8), np.asarray(idxs),
+                       np.asarray(crcs, np.uint32))
+    if times is not None:
+        times["shards"] = [t for _, t in parts]
+    return [p for payloads, _ in parts for p in payloads]

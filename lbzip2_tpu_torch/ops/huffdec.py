@@ -97,18 +97,20 @@ def decode_groups_cuda(words, group_start, group_tree, base, count, perm):
             not 1 <= nt <= NTREES or base.shape != (nt, NBASE) or \
             count.shape != (nt, NBASE) or perm.shape != (nt, NPERM):
         raise ValueError("bad decode_groups shapes")
-    syms = torch.empty((G, GROUP_SIZE), dtype=torch.int32, device=dev)
-    end = torch.empty(G, dtype=torch.int32, device=dev)
-    if G == 0:
-        return syms, end
-    lut = torch.empty(nt << LUT_BITS, dtype=torch.int16, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(words.data_ptr(), group_start.data_ptr(),
-                 group_tree.data_ptr(), base.data_ptr(), count.data_ptr(),
-                 perm.data_ptr(), lut.data_ptr(), syms.data_ptr(),
-                 end.data_ptr(), G, W, nt, stream)
-    if err != 0:
-        raise RuntimeError(f"huffdec kernel launch failed: cudaError {err}")
+    with torch.cuda.device(dev):  # the C side launches on it
+        syms = torch.empty((G, GROUP_SIZE), dtype=torch.int32, device=dev)
+        end = torch.empty(G, dtype=torch.int32, device=dev)
+        if G == 0:
+            return syms, end
+        lut = torch.empty(nt << LUT_BITS, dtype=torch.int16, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib()(words.data_ptr(), group_start.data_ptr(),
+                     group_tree.data_ptr(), base.data_ptr(),
+                     count.data_ptr(), perm.data_ptr(), lut.data_ptr(),
+                     syms.data_ptr(), end.data_ptr(), G, W, nt, stream)
+        if err != 0:
+            raise RuntimeError(f"huffdec kernel launch failed: cudaError "
+                               f"{err}")
     launches += 1
     return syms, end
 

@@ -162,14 +162,15 @@ def make_code_lengths_cuda(freqs: torch.Tensor,
     R = freqs.shape[0]
     if freqs.shape != (R, W) or as_arr.shape != (R,):
         raise ValueError("bad make_code_lengths shapes")
-    out = torch.empty((R, W), dtype=torch.int32, device=dev)
-    if R == 0:
-        return out
-    err = _lib()(freqs.data_ptr(), as_arr.data_ptr(), out.data_ptr(), R,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"code_lengths kernel launch failed: cudaError {err}")
+    with torch.cuda.device(dev):  # the C side launches on it
+        out = torch.empty((R, W), dtype=torch.int32, device=dev)
+        if R == 0:
+            return out
+        err = _lib()(freqs.data_ptr(), as_arr.data_ptr(), out.data_ptr(),
+                     R, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"code_lengths kernel launch failed: cudaError {err}")
     launches += 1
     return out
 
@@ -257,17 +258,20 @@ def em_chain_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
     if cluster_factor < 1:
         raise ValueError("cluster_factor must be at least 1")
     G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
-    lengths = lengths0.clone()
-    sel = torch.empty((B, G), dtype=torch.int32, device=dev)
-    freqs = torch.zeros((B, MAX_TREES, W), dtype=torch.int32, device=dev)
-    ctl = torch.zeros(2 + cluster_factor, dtype=torch.int32, device=dev)
-    err = _em_lib()(mtfv.data_ptr(), nm.data_ptr(), ninuse.data_ptr(),
-                    nt.data_ptr(), lengths.data_ptr(), sel.data_ptr(),
-                    freqs.data_ptr(), ctl.data_ptr(), B, NP, G,
-                    cluster_factor,
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"em_chain kernel launch failed: cudaError {err}")
+    with torch.cuda.device(dev):  # the C side launches on it
+        lengths = lengths0.clone()
+        sel = torch.empty((B, G), dtype=torch.int32, device=dev)
+        freqs = torch.zeros((B, MAX_TREES, W), dtype=torch.int32,
+                            device=dev)
+        ctl = torch.zeros(2 + cluster_factor, dtype=torch.int32, device=dev)
+        err = _em_lib()(mtfv.data_ptr(), nm.data_ptr(), ninuse.data_ptr(),
+                        nt.data_ptr(), lengths.data_ptr(), sel.data_ptr(),
+                        freqs.data_ptr(), ctl.data_ptr(), B, NP, G,
+                        cluster_factor,
+                        torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"em_chain kernel launch failed: cudaError "
+                               f"{err}")
     em_launches += 1
     launches += cluster_factor - 1
     return sel, freqs, lengths, ctl[1]

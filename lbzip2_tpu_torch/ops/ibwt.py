@@ -100,13 +100,13 @@ def _workspace(dev: torch.device, B: int, words: int):
     for all it queued on them before it returns, so the thread's next
     call, at any shape no larger, takes them again and allocates
     nothing."""
-    held = getattr(_held, "buffers", None)
-    if held is None or held[0].device != dev or held[0].numel() < words \
-            or held[1].numel() < B:
+    mine = _held.__dict__.setdefault("buffers", {})  # device -> buffers
+    held = mine.get(dev)
+    if held is None or held[0].numel() < words or held[1].numel() < B:
         words = max(words, 0 if held is None else held[0].numel())
         flags = torch.empty(max(B, 0 if held is None else held[1].numel()),
                             dtype=torch.int32, pin_memory=True)
-        _held.buffers = held = (
+        mine[dev] = held = (
             torch.empty(words, dtype=torch.int32, device=dev), flags,
             flags.numpy())
     return held[0], held[1][:B], held[2][:B]
@@ -143,40 +143,43 @@ def ibwt_cuda(bwt: torch.Tensor, ns: torch.Tensor,
     if N >= MAX_N:
         raise ValueError(f"rows of {N} lanes: the kernel takes fewer "
                          f"than {MAX_N}")
-    out = torch.empty_like(bwt)
-    if B == 0 or N == 0:
-        return out
-    nch = -(-N // CHUNK)
-    shift = shift_for(N)
-    S = -(-N // (1 << shift)) + 1
-    # ptr, splitter entries, offsets, chunk histograms, key totals, flags
-    scratch, redo, redo_host = _workspace(
-        dev, B, B * (N + 2 * S + nch * 256 + 256 + 1))
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev)
-    err = lib.lbz2t_ibwt(bwt.data_ptr(), ns.data_ptr(), idxs.data_ptr(),
-                         out.data_ptr(), scratch.data_ptr(), redo.data_ptr(),
-                         B, N, CHUNK, shift, CAP << shift,
-                         stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ibwt kernel launch failed: cudaError {err}")
-    launches += 1
-    stream.synchronize()
-    if redo_host.any():
-        rows = torch.nonzero(redo)[:, 0].to(dev, torch.int32)
-        R = rows.numel()
-        jump = torch.empty((2, R, N), dtype=torch.int32, device=dev)
-        seq = torch.empty((R, N), dtype=torch.int32, device=dev)
-        err = lib.lbz2t_ibwt_doubling(
-            bwt.data_ptr(), ns.data_ptr(), idxs.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), rows.data_ptr(), jump[0].data_ptr(),
-            jump[1].data_ptr(), seq.data_ptr(), R, N, steps_for(N),
-            stream.cuda_stream)
+    with torch.cuda.device(dev):  # the C side launches on it
+        out = torch.empty_like(bwt)
+        if B == 0 or N == 0:
+            return out
+        nch = -(-N // CHUNK)
+        shift = shift_for(N)
+        S = -(-N // (1 << shift)) + 1
+        # ptr, splitter entries, offsets, chunk histograms, key totals,
+        # flags
+        scratch, redo, redo_host = _workspace(
+            dev, B, B * (N + 2 * S + nch * 256 + 256 + 1))
+        lib = _lib()
+        stream = torch.cuda.current_stream(dev)
+        err = lib.lbz2t_ibwt(bwt.data_ptr(), ns.data_ptr(),
+                             idxs.data_ptr(), out.data_ptr(),
+                             scratch.data_ptr(), redo.data_ptr(), B, N,
+                             CHUNK, shift, CAP << shift, stream.cuda_stream)
         if err != 0:
-            raise RuntimeError(f"ibwt doubling launch failed: cudaError "
+            raise RuntimeError(f"ibwt kernel launch failed: cudaError "
                                f"{err}")
-        doubling_rows += R
-        stream.synchronize()  # the kept scratch is free again
+        launches += 1
+        stream.synchronize()
+        if redo_host.any():
+            rows = torch.nonzero(redo)[:, 0].to(dev, torch.int32)
+            R = rows.numel()
+            jump = torch.empty((2, R, N), dtype=torch.int32, device=dev)
+            seq = torch.empty((R, N), dtype=torch.int32, device=dev)
+            err = lib.lbz2t_ibwt_doubling(
+                bwt.data_ptr(), ns.data_ptr(), idxs.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), rows.data_ptr(),
+                jump[0].data_ptr(), jump[1].data_ptr(), seq.data_ptr(), R,
+                N, steps_for(N), stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"ibwt doubling launch failed: "
+                                   f"cudaError {err}")
+            doubling_rows += R
+            stream.synchronize()  # the kept scratch is free again
     return out
 
 

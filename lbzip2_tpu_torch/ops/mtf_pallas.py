@@ -88,17 +88,18 @@ def mtf_ranks_cuda(syms: torch.Tensor, ns: torch.Tensor) -> torch.Tensor:
     if not (syms.is_contiguous() and ns.is_contiguous()):
         raise ValueError("syms and ns must be contiguous")
     B, N = syms.shape
-    out = torch.empty_like(syms)
-    nch = -(-N // KERNEL_CHUNK)
-    lastc = torch.empty((B, max(nch, 1), 256), dtype=torch.int32,
-                        device=syms.device)
     fn = _lib()
-    stream = torch.cuda.current_stream(syms.device).cuda_stream
-    err = fn(syms.data_ptr(), ns.data_ptr(), out.data_ptr(),
-             lastc.data_ptr(), B, N, KERNEL_CHUNK, stream)
-    if err != 0:
-        raise RuntimeError(f"mtf_ranks kernel launch failed: "
-                           f"cudaError {err}")
+    with torch.cuda.device(syms.device):  # the C side launches on it
+        out = torch.empty_like(syms)
+        nch = -(-N // KERNEL_CHUNK)
+        lastc = torch.empty((B, max(nch, 1), 256), dtype=torch.int32,
+                            device=syms.device)
+        stream = torch.cuda.current_stream(syms.device).cuda_stream
+        err = fn(syms.data_ptr(), ns.data_ptr(), out.data_ptr(),
+                 lastc.data_ptr(), B, N, KERNEL_CHUNK, stream)
+        if err != 0:
+            raise RuntimeError(f"mtf_ranks kernel launch failed: "
+                               f"cudaError {err}")
     launches += 1
     return out
 

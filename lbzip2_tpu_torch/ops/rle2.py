@@ -65,3 +65,14 @@ def _rle2_batch(ranks: torch.Tensor, ns: torch.Tensor,
     mtfv = out[:, :N + 1]
     lanes = torch.arange(N + 1, dtype=torch.int32, device=dev)[None]
     return torch.where(lanes < nm[:, None], mtfv, 0), nm
+
+
+def rle2_from_ranks(ranks: torch.Tensor, n, ninuse):
+    """Single-row form of ``_rle2_batch`` (lbzip2_tpu/ops/rle2.py:74):
+    ranks (N,) int32 -> (mtfv (N+1,) int32, nm 0-d int32)."""
+    dev = ranks.device
+    mtfv, nm = _rle2_batch(
+        ranks.int()[None], torch.tensor([int(n)], dtype=torch.int32,
+                                        device=dev),
+        torch.tensor([int(ninuse)], dtype=torch.int32, device=dev))
+    return mtfv[0], nm[0]

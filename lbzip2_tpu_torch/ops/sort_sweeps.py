@@ -116,14 +116,15 @@ def sweeps_cuda(keys: torch.Tensor, sweeps: int, sub: int) -> torch.Tensor:
         raise ValueError("keys must be contiguous")
     B, R, _ = keys.shape
     per, n, wpc, C, warps = plan(R // sub)
-    out = torch.empty_like(keys)
     fn = _lib()
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = fn(keys.data_ptr(), out.data_ptr(), B, R, sub, per, n, wpc, C,
-             warps, sweeps, stream)
-    if err != 0:
-        raise RuntimeError(f"sort_sweeps kernel launch failed: "
-                           f"cudaError {err}")
+    with torch.cuda.device(keys.device):  # the C side launches on it
+        out = torch.empty_like(keys)
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = fn(keys.data_ptr(), out.data_ptr(), B, R, sub, per, n, wpc,
+                 C, warps, sweeps, stream)
+        if err != 0:
+            raise RuntimeError(f"sort_sweeps kernel launch failed: "
+                               f"cudaError {err}")
     launches += 1
     return out
 

@@ -78,3 +78,52 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.pathlib.Path, "is_file", lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+KERNELS = ["bitpack", "code_lengths", "crc32", "em_chain", "huffdec",
+           "ibwt", "mtf_ranks", "sort_sweeps"]
+
+
+def test_every_kernel_source_is_found():
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == KERNELS
+
+
+def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
+    """The repository's eight sources, the CRC and the bit packer among
+    them, each built by a compiler process of its own."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    calls = []
+    real_popen = _build.subprocess.Popen
+
+    def popen(cmd, **kw):
+        calls.append(os.path.basename(cmd[-1]))
+        return real_popen(cmd, **kw)
+
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "build_log", {})
+    monkeypatch.setattr(_build.subprocess, "Popen", popen)
+    _build.build()
+    assert sorted(calls) == [f"{k}.cu" for k in KERNELS]
+    assert sorted(_build.build_log) == KERNELS
+
+
+@pytest.mark.parametrize("name", ["crc32", "bitpack"])
+def test_missing_toolchain_raises_for_new_kernels(name, tmp_path,
+                                                  monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built")
+
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load(name)
