@@ -4,17 +4,21 @@
     python3 chip_smoke.py --kernels [--tree DIR] [--profile]
     python3 chip_smoke.py --measure --tree DIR
 
-The second form runs no phase: it builds the eight kernels of this
-checkout (or of the checkout at DIR, whose wrappers have the same
-signatures: run both in turns inside one call to compare two trees),
-holds them against their plain versions on the timed inputs of phases
-3, 4, 8, 9, 12, 13, 14 and 15 (a checkout without the CRC and the bit
-packer times the six it has), and prints their CUDA-event times, with
+The second form runs no phase: it builds the kernels of this checkout
+(or of the checkout at DIR, whose wrappers have the same signatures:
+run both in turns inside one call to compare two trees), holds them
+against their plain versions on the timed inputs of phases 3, 4, 8, 9,
+12, 13, 14, 15 and 19 (a checkout without the CRC and the bit packer
+times the six it has; one without the BWT's suffix-sort kernels times
+the plain suffix sorts its main path ran), and prints their CUDA-event
+times, with
 --profile each CUDA kernel's device time too, the sweep loop's SASS,
 and the peak of device memory over one text batch through
-chain_payloads, as one JSON line.  The third runs no phase either: it
-takes the stream runs that --measure adds to phase 6 (stream_runs) with
-the package of the checkout at DIR: the phase-6 stream through compress
+chain_payloads, as one JSON line.  The third runs no phase either:
+with the package of the checkout at DIR it prints the device time per
+op of one text batch (op_table, which --measure adds to phase 13) and
+takes the stream runs that --measure adds to phase 6 (stream_runs):
+the phase-6 stream through compress
 in the shipped default (host stealing and steal-back on: the device's
 share, stale rows, every batch's claim->deliver time) and device-only,
 and through decompress_parallel and decompress_stream with both device
@@ -167,6 +171,22 @@ Phases (any failure exits non-zero before the last line is printed):
              of the stream: process 0's stream equals the single-host
              compress; each process's shard went through the card's
              kernels.
+ 19. bwt2:   the BWT's suffix-sort kernels (csrc/bwt2_sort.cu behind
+             ops/bwt2.py::_seed16 and _pass8) against their plain
+             versions, tolerance 0 on the ISA's lanes < n and on the
+             unresolved counts: the first 32 text blocks as Lyndon rows
+             at (32, 901120), the stream's uniform random, 16-value and
+             random-run blocks, deep repeats (periods 1 to 450,560) and
+             an (8, 8192) bucket with n = 0, 1, 2 and N and a row whose
+             first suffix the seed ranks past the pads; on each the
+             seed, every pass of the resolve loop and one identity pass
+             past it, then bwt2_bytes' rows and primaries against the
+             plain loop and emit (the bucket's also against the host C
+             BWT); CUDA-event times of both functions
+             against their plain versions on each case and of one
+             torch.sort(stable=True) of a (32, 901120) int64 key, their
+             library_ms.  (It runs after phase 15.)  Phases 6, 7, 16, 17
+             and 18 assert that their paths launched both.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -377,10 +397,11 @@ def bound(nbytes: float, ops: float) -> dict:
     move (each input read once, each output written once) over the
     memory rate, or the integer instructions it needs on this run's
     inputs, one an operation, over INT_OPS_S, whichever is larger.  No
-    single PyTorch call computes any of the eight kernels' functions (the
-    EM loop least of all: a data-dependent number of rounds of a packed
-    argmin and a Huffman construction), so there is no library time to
-    set beside them."""
+    single PyTorch call computes any of the first eight kernels'
+    functions (the EM loop least of all: a data-dependent number of
+    rounds of a packed argmin and a Huffman construction), so there is
+    no library time to set beside them; the BWT's records set the sort
+    their radix passes compute (bwt2_phase)."""
     by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT_OPS_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "library_ms": None,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
@@ -1113,6 +1134,7 @@ def token_run(eligible: int) -> int:
     environment): compress the stream read from stdin twice, warm, and
     print one JSON line of what the parent checks."""
     from lbzip2_tpu_torch.codec import encoder
+    from lbzip2_tpu_torch.ops import bwt2
 
     data = sys.stdin.buffer.read()
     dev = torch.device("cuda", 0)
@@ -1134,10 +1156,13 @@ def token_run(eligible: int) -> int:
     first = time.time() - t0
     for name in calls:
         calls[name] = 0
+    bwt2.launches = bwt2.pass_launches = 0
     t0 = time.time()
     out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
     stats = encoder.last_stats
+    calls["bwt2_seed16"] = bwt2.launches - bwt2.pass_launches
+    calls["bwt2_pass8"] = bwt2.pass_launches
     print(json.dumps({
         "warm_device_s": warm, "first_s": first, "s": dt,
         "mbps": len(data) / dt / 1e6, "bytes": len(out),
@@ -1173,6 +1198,9 @@ def token_phase(data: bytes, eligible: int, ref: bytes) -> dict:
         f"token mode: device did {res['device_blocks']} of {eligible}"
     assert res["calls"]["bwt2_tokens"] > 0 and \
         res["calls"]["bwt2_bytes"] == 0, f"token mode ran {res['calls']}"
+    assert res["calls"]["bwt2_seed16"] > 0 and \
+        res["calls"]["bwt2_pass8"] > 0, \
+        f"token mode missed the BWT kernels: {res['calls']}"
     return res
 
 
@@ -1550,17 +1578,19 @@ def cli_phase(few: bytes) -> None:
 
 
 def kernels_only(seed: int, profiled: bool, dev) -> int:
-    """--kernels: the eight kernels of the package on the path (MTF
-    ranks, sweeps, Huffman group decode, inverse BWT, code lengths, the
-    EM loop, CRC, bit packer; a checkout without the last two times the
-    six it has), held against their plain versions (tolerance 0) and timed
+    """--kernels: the kernels of the package on the path (MTF ranks,
+    sweeps, Huffman group decode, inverse BWT, code lengths, the EM loop,
+    CRC, bit packer, the BWT's seed and pass; a checkout without the CRC
+    and the bit packer times the six it has, one without the BWT's
+    kernels its plain suffix sorts), held against their plain versions
+    (tolerance 0; the BWT's on the ISA's lanes < n and the counts) and timed
     on the smoke's timed inputs; the sweep loop's SASS; and the peak of
     device memory over one text batch through chain_payloads.  One JSON
     line.  A checkout from before the EM loop moved to the card has no
     em_chain_rows: there the loop timed is the one its main path ran,
     the plain E-steps with the M-step kernel between them."""
     from lbzip2_tpu_torch import _build
-    from lbzip2_tpu_torch.ops import (chain, huffdec, huffenc, ibwt,
+    from lbzip2_tpu_torch.ops import (bwt2, chain, huffdec, huffenc, ibwt,
                                       mtf_pallas, sort_sweeps)
 
     _, text = make_data(seed, text_blocks=ROWS)
@@ -1603,11 +1633,25 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
             lambda v, ln: bitpack.pack_bits_device(v, ln, v.numel()),
             lambda v, ln: bitpack.pack_bits_plain(v, ln, v.numel()),
             (values, nbits))
+    # the suffix sorts on the text rows; a checkout from before their
+    # kernels times its plain versions, which its main path ran
+    rows_h, ns_h, _ = text_rows(text)
+    rows_d, ns_d = (torch.from_numpy(a).to(dev) for a in (rows_h, ns_h))
+    seed_plain = getattr(bwt2, "_seed16_plain", bwt2._seed16)
+    pass_plain = getattr(bwt2, "_pass8_plain", bwt2._pass8)
+    seed_isa = seed_plain(rows_d, ns_d)[0]
+    calls["bwt2_seed16_text_32x901120"] = (bwt2._seed16, seed_plain,
+                                           (rows_d, ns_d))
+    calls["bwt2_pass8_text_32x901120"] = (
+        lambda i, n: bwt2._pass8(i, 16, n),
+        lambda i, n: pass_plain(i, 16, n), (seed_isa, ns_d))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
         got, want = kernel(*a), plain(*a)
         torch.cuda.synchronize()
+        if name.startswith("bwt2"):  # the ISA's lanes < n, and cnt
+            got, want = ((valid_lanes(x[0], ns_d), x[1]) for x in (got, want))
         res["max_abs_err"][name] = max_err_of(got, want)
         res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if name.startswith(
             ("code", "huff", "crc", "bitpack")) else 10)
@@ -1749,13 +1793,17 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
 
 
 def stream_tree(seed: int, dev) -> int:
-    """--measure --tree DIR: stream_runs on the phase-6 stream with the
-    package of DIR, as one JSON line."""
+    """--measure --tree DIR: the per-op table of one text batch
+    (op_table), then stream_runs on the phase-6 stream as one JSON line,
+    both with the package of DIR."""
     from lbzip2_tpu_torch.codec import encoder
 
-    data, _ = make_data(seed)
+    data, text = make_data(seed)
     ref = host_reference(data)
     warm = encoder.warm_device(device=dev)
+    _, batch = mtf_timed_cases(text, dev)
+    op_table(text, batch, dev)
+    del batch
     print(json.dumps({"warm_device_s": warm, **stream_runs(data, ref, dev)}),
           flush=True)
     return 0
@@ -1889,21 +1937,187 @@ def bitpack_phase(batch, dev) -> dict:
             "device_us": us, **bound(n * (8 + 4 + 8) + 4, n)}
 
 
+def bwt2_rows(blocks: list, width: int):
+    """Lyndon rows of byte blocks at ``width``, an empty block a row of
+    n = 0: (rows, ns, ms) on the host."""
+    from lbzip2_tpu_torch import native
+
+    rows = np.zeros((len(blocks), width), np.uint8)
+    ns = np.array([b.size for b in blocks], np.int32)
+    ms = np.zeros(len(blocks), np.int32)
+    for r, blk in enumerate(blocks):
+        if blk.size:
+            _, ms[r] = native.lyndon_prep(blk, out=rows[r, :blk.size])
+    assert (ms >= 0).all(), "a periodic block among the BWT cases"
+    return rows, ns, ms
+
+
+def text_rows(text: bytes):
+    """The first 32 text blocks as Lyndon rows at (32, 901120)."""
+    tb = np.frombuffer(text, np.uint8)
+    return bwt2_rows([tb[(r * BLOCK) % tb.size:][:BLOCK]
+                      for r in range(ROWS)], WIDTH)
+
+
+def bwt2_cases(data: bytes, text: bytes) -> dict:
+    """Phase 19's inputs, name -> (rows, ns, ms) on the host: the text
+    rows, the stream's uniform random, 16-value and random-run blocks,
+    deep repeats (periods 1 to 450,560) and an (8, 8192) bucket with
+    n = 0, 1, 2 and N among its rows, whose blocks come fourth."""
+    tail = np.frombuffer(data[-3 * BLOCK:], np.uint8)
+    rng, small = np.random.default_rng(19), np.random.default_rng(20)
+    deep = []
+    for n, p in ((BLOCK, 256), (BLOCK, 7), (BLOCK * 7 // 9, 1),
+                 (WIDTH, WIDTH // 2), (BLOCK * 5 // 9, 33)):
+        b = np.tile(rng.integers(0, 256, p, np.uint8), n // p + 1)[:n].copy()
+        b[-1] ^= 1  # keep primitive
+        deep.append(b)
+    bucket = [small.integers(0, 256, n, np.uint8)
+              for n in (0, 1, 2, 8192, 100, 8191, 3)]
+    # 16 values, FF FF FF FF 01 first, 00 00 at 1000: the seed leaves no
+    # tie and ranks the first suffix past the pads (ops/bwt2.py's
+    # _resolve_loop)
+    ff = (small.integers(0, 16, 6000) + 0x40).astype(np.uint8)
+    ff[:5] = (0xFF, 0xFF, 0xFF, 0xFF, 1)
+    ff[1000:1002] = 0
+    return {
+        "text_32x901120": text_rows(text),
+        "random_uniform_16_runs": bwt2_rows(
+            [tail[i * BLOCK:(i + 1) * BLOCK] for i in range(3)], WIDTH),
+        "deep_repeats": bwt2_rows(deep, WIDTH),
+        "bucket_8x8192": bwt2_rows(bucket + [ff], 8192) + (bucket + [ff],)}
+
+
+def valid_lanes(isa, ns):
+    """The ISA with its lanes at and past n set to 0: the kernels define
+    the lanes < n only."""
+    lane = torch.arange(isa.shape[1], device=isa.device)
+    return torch.where(lane[None] < ns.long()[:, None], isa, 0)
+
+
+def sort_library_ms(dev) -> float:
+    """One torch.sort(stable=True) of a (32, 901120) int64 key (its
+    indices the payload): the library call that computes a radix pass's
+    sort."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    key = torch.randint(0, 2 ** 62, (ROWS, WIDTH), generator=gen,
+                        device=dev, dtype=torch.int64)
+    return cuda_ms(lambda: torch.sort(key, dim=1, stable=True), 10)
+
+
+def bwt2_phase(data: bytes, text: bytes, dev) -> list:
+    """19. The suffix-sort kernels (csrc/bwt2_sort.cu) against their
+    plain versions on every case of bwt2_cases, tolerance 0 on the valid
+    lanes of the ISA and on the counts: the seed, every pass of the
+    resolve loop and one identity pass past it (which must give back its
+    input), then bwt2_bytes' rows and primaries against the plain loop
+    and emit (the bucket's also against the host C BWT); CUDA-event
+    times of both functions against their plain versions on each case.
+    Returns the two kernel records."""
+    from lbzip2_tpu_torch import native
+    from lbzip2_tpu_torch.ops import bwt2
+
+    errs = {"seed": 0, "pass": 0}
+    times = {}
+    for name, host in bwt2_cases(data, text).items():
+        rows, ns, ms = (torch.from_numpy(a).to(dev) for a in host[:3])
+
+        def check(which, got, want):
+            e = max_err_of((valid_lanes(got[0], ns), got[1]),
+                           (valid_lanes(want[0], ns), want[1]))
+            errs[which] = max(errs[which], e)
+            assert e == 0, f"bwt2 {which} kernel disagrees on {name}"
+
+        isa, cnt = bwt2._seed16(rows, ns)
+        check("seed", (isa, cnt), bwt2._seed16_plain(rows, ns))
+        seed_isa, k, passes = isa, 16, 0
+        while True:  # the loop's passes (at least one), then one more
+            out = bwt2._pass8(isa, k, ns)
+            check("pass", out, bwt2._pass8_plain(isa, k, ns))
+            if passes and int(cnt.max()) == 0:  # past the end: identity
+                assert torch.equal(valid_lanes(out[0], ns),
+                                   valid_lanes(isa, ns)) and \
+                    int(out[1].max()) == 0, f"{name}: no identity pass"
+                break
+            isa, cnt = out
+            k, passes = k * 8, passes + 1
+            assert passes <= 8, f"{name}: the loop does not end"
+        # the emit reads byte n - 1 of a row: rows of n = 0 are never
+        # shipped, and take no part here
+        kept = torch.nonzero(ns > 0)[:, 0]
+        rows1, ns1, ms1 = rows[kept], ns[kept], ms[kept]
+        bwt_k, prim_k = bwt2.bwt2_bytes(rows1, ns1, ms1)
+        isa_p, cnt_p = bwt2._pass8_plain(
+            bwt2._seed16_plain(rows1, ns1)[0], 16, ns1)
+        k = 128
+        while int(cnt_p.max()) > 0:
+            isa_p, cnt_p = bwt2._pass8_plain(isa_p, k, ns1)
+            k *= 8
+        bwt_p, prim_p = bwt2._emit_bytes(rows1, isa_p, ns1, ms1)
+        assert torch.equal(prim_k, prim_p) and torch.equal(
+            valid_lanes(bwt_k, ns1), valid_lanes(bwt_p, ns1)), \
+            f"bwt2_bytes with the kernels differs on {name}"
+        if len(host) > 3:  # the bucket: also against the host C BWT
+            for r, b in enumerate(x for x in host[3] if x.size):
+                want_row, want_idx = native.bwt(b)
+                assert int(prim_k[r]) == want_idx and np.array_equal(
+                    bwt_k[r, :b.size].cpu().numpy(), want_row), \
+                    f"bwt2_bytes differs from the host BWT, {name} row {r}"
+        t = {"passes": passes,
+             "seed_ms": cuda_ms(lambda: bwt2._seed16(rows, ns), 10),
+             "seed_plain_ms": cuda_ms(lambda: bwt2._seed16_plain(rows, ns),
+                                      3),
+             "pass_ms": cuda_ms(lambda: bwt2._pass8(seed_isa, 16, ns), 10),
+             "pass_plain_ms": cuda_ms(
+                 lambda: bwt2._pass8_plain(seed_isa, 16, ns), 3)}
+        times[name] = t
+        log(f"bwt2 kernels vs plain [{name}, {tuple(rows.shape)}]: equal "
+            f"on the seed, {passes} passes and the identity pass, and on "
+            f"bwt2_bytes; {json.dumps(t)}")
+    lib_ms = sort_library_ms(dev)
+    log(f"bwt2: torch.sort(stable=True), (32, {WIDTH}) int64: "
+        f"{lib_ms:.3f} ms; launches in this phase {bwt2.launches} "
+        f"({bwt2.pass_launches} passes)")
+    lanes = ROWS * WIDTH
+    live = int(text_rows(text)[1].sum())
+
+    def record(which, name, replaces, nbytes):
+        text_t = times["text_32x901120"]
+        return {"name": name, "route": "cuda",
+                "source": "lbzip2_tpu_torch/csrc/bwt2_sort.cu",
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": errs[which], "ms": text_t[f"{which}_ms"],
+                "plain_ms": text_t[f"{which}_plain_ms"],
+                "cases": {c: {k: v for k, v in t.items()
+                              if k.startswith(which) or k == "passes"}
+                          for c, t in times.items()},
+                **bound(nbytes, live), "library_ms": lib_ms}
+
+    # bytes once in and once out: the rows (uint8) or the ISA (int32) in,
+    # the ISA and the counts out; a lane takes at least one operation
+    return [record("seed", "bwt2_seed16", "lbzip2_tpu/ops/bwt2.py:81",
+                   lanes + 4 * lanes + 8 * ROWS),
+            record("pass", "bwt2_pass8", "lbzip2_tpu/ops/bwt2.py:125",
+                   8 * lanes + 8 * ROWS)]
+
+
 def reset_counts() -> None:
     """Set the launch counts of the kernels the sharded and engine paths
     run to 0, just before a path runs (read_counts just after)."""
-    from lbzip2_tpu_torch.ops import huffenc, ibwt, mtf_pallas
+    from lbzip2_tpu_torch.ops import bwt2, huffenc, ibwt, mtf_pallas
 
     mtf_pallas.launches = huffenc.em_launches = huffenc.launches = 0
-    ibwt.launches = 0
+    ibwt.launches = bwt2.launches = bwt2.pass_launches = 0
 
 
 def read_counts() -> dict:
-    from lbzip2_tpu_torch.ops import huffenc, ibwt, mtf_pallas
+    from lbzip2_tpu_torch.ops import bwt2, huffenc, ibwt, mtf_pallas
 
     return {"mtf_ranks": mtf_pallas.launches, "em_chain":
             huffenc.em_launches, "code_lengths": huffenc.launches,
-            "ibwt": ibwt.launches}
+            "ibwt": ibwt.launches,
+            "bwt2_seed16": bwt2.launches - bwt2.pass_launches,
+            "bwt2_pass8": bwt2.pass_launches}
 
 
 def sharded_phase(dev) -> dict:
@@ -1925,7 +2139,8 @@ def sharded_phase(dev) -> dict:
     log(f"sharded: dryrun_multichip({count}) over {count} card(s) at "
         f"{WIDTH}: {wall:.2f} s, {json.dumps(res)}; launches "
         f"{json.dumps(counts)}")
-    assert counts["mtf_ranks"] and counts["em_chain"] and counts["ibwt"], \
+    assert counts["mtf_ranks"] and counts["em_chain"] and counts["ibwt"] \
+        and counts["bwt2_seed16"] and counts["bwt2_pass8"], \
         f"the dry run missed a kernel of its path: {counts}"
     blocks, ns, ms, raws, cmaps, rle_rows = entry.dryrun_blocks(4, WIDTH)
     cmaps = np.stack([np.asarray(c, np.uint8) for c in cmaps])
@@ -2017,27 +2232,29 @@ def engine_cards_phase(data: bytes, ref: bytes, dev) -> dict:
         f"{json.dumps(counts)}")
     assert out == ref, "compress over every card differs from bin/lbzip2"
     assert set(devs) == set(range(count)), f"cards driven: {set(devs)}"
-    assert counts["mtf_ranks"] and counts["em_chain"], counts
+    assert counts["mtf_ranks"] and counts["em_chain"] and \
+        counts["bwt2_seed16"] and counts["bwt2_pass8"], counts
     return {"cards": count, "s": dt, "batch_devs": devs, "launches": counts}
 
 
 MULTIHOST_WORKER = r"""
 import json, sys
 import torch
-from lbzip2_tpu_torch.ops import huffenc, mtf_pallas
+from lbzip2_tpu_torch.ops import bwt2, huffenc, mtf_pallas
 from lbzip2_tpu_torch.parallel import multihost as MH
 addr, pid, nproc, src, dst, dev = sys.argv[1:7]
 pid, nproc = int(pid), int(nproc)
 MH.initialize_distributed(addr, nproc, pid)
 data = open(src, "rb").read()
 a, b = MH.shard_bounds(len(data), 9, nproc, pid)
-mtf_pallas.launches = huffenc.em_launches = 0
+mtf_pallas.launches = huffenc.em_launches = bwt2.launches = 0
 out = MH.compress_multihost(data[a:b], 9, engine="hybrid", device=dev)
 if pid == 0:
     open(dst, "wb").write(out)
 print(json.dumps({"pid": pid, "shard": [a, b], "mtf_ranks":
                   mtf_pallas.launches, "em_chain": huffenc.em_launches,
-                  "stream": out is not None}), flush=True)
+                  "bwt2": bwt2.launches, "stream": out is not None}),
+      flush=True)
 torch.distributed.destroy_process_group()
 """
 
@@ -2097,7 +2314,8 @@ def multihost_phase(data: bytes, dev) -> dict:
         f"{json.dumps(recs)}")
     assert stream == single, "the two-process stream differs from one host"
     assert bz2.decompress(stream) == prefix
-    assert all(r["mtf_ranks"] and r["em_chain"] for r in recs), \
+    assert all(r["mtf_ranks"] and r["em_chain"] and r["bwt2"]
+               for r in recs), \
         f"a process's shard missed the card's kernels: {recs}"
     return {"s": wall, "processes": recs}
 
@@ -2112,7 +2330,7 @@ def main(argv=None) -> int:
                     "with their stage times), and the decode phase under "
                     "the profiler; with --tree only the stream runs")
     ap.add_argument("--kernels", action="store_true",
-                    help="only hold the eight kernels against their plain "
+                    help="only hold the kernels against their plain "
                     "versions and time them on the smoke's timed inputs")
     ap.add_argument("--tree", metavar="DIR",
                     help="with --kernels or --measure: take the package "
@@ -2143,7 +2361,7 @@ def main(argv=None) -> int:
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
-    from lbzip2_tpu_torch.ops import (bitpack, chain, crc, huffenc,
+    from lbzip2_tpu_torch.ops import (bitpack, bwt2, chain, crc, huffenc,
                                       mtf_pallas, sort_sweeps)
     from lbzip2_tpu_torch.tools import sort_probe
 
@@ -2178,6 +2396,7 @@ def main(argv=None) -> int:
     bitpack_record = bitpack_phase(text_batch, dev)
     crc_record["smoke_launches"] = crc.launches
     bitpack_record["smoke_launches"] = bitpack.launches
+    seed_record, pass_record = bwt2_phase(data, text, dev)
     if args.measure:
         op_table(text, text_batch, dev)
     del text_batch, text_h, text_args
@@ -2215,11 +2434,14 @@ def main(argv=None) -> int:
         setattr(mod, name, counted(name, fn))
     mtf_pallas.launches = huffenc.launches = huffenc.em_launches = 0
     crc.launches = bitpack.launches = 0
+    bwt2.launches = bwt2.pass_launches = 0
     t0 = time.time()
     out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
     launches, mstep_launches, em_launches = \
         mtf_pallas.launches, huffenc.launches, huffenc.em_launches
+    seed_record["launches"] = bwt2.launches - bwt2.pass_launches
+    pass_record["launches"] = bwt2.pass_launches
     crc_record["launches"] = crc.launches  # not on the main path: 0
     bitpack_record["launches"] = bitpack.launches
     for name, (mod, fn) in plain_fns.items():
@@ -2231,7 +2453,8 @@ def main(argv=None) -> int:
         f"{peak / 2**30:.2f} GiB, mtf launches {launches}, EM loops on the "
         f"card {em_launches} for {len(stats['batch_trace'])} batches, "
         f"{mstep_launches} M-step launches among them, off the kernels "
-        f"{json.dumps(off_path)}")
+        f"{json.dumps(off_path)}, BWT seeds {seed_record['launches']} and "
+        f"passes {pass_record['launches']} on the kernels")
 
     def log_batches(stats):
         for i, tele in enumerate(stats["batch_trace"]):
@@ -2259,6 +2482,8 @@ def main(argv=None) -> int:
     assert stats["device_blocks"] == eligible, \
         f"device did {stats['device_blocks']} of {eligible} blocks"
     assert launches > 0, "main path never launched the MTF kernel"
+    assert seed_record["launches"] > 0 and pass_record["launches"] > 0, \
+        "main path never launched the BWT kernels"
     alive = [t.name for t in threading.enumerate()
              if t.name.startswith("lbz2-")]
     assert not alive, f"engine threads outlived compress: {alive}"
@@ -2318,7 +2543,8 @@ def main(argv=None) -> int:
     ibwt_record["sharded_launches"] = sharded["launches"]["ibwt"]
     print(json.dumps({"kernels": [record, sweep_record, huff_record,
                                   ibwt_record, lengths_record, em_record,
-                                  crc_record, bitpack_record]}))
+                                  crc_record, bitpack_record, seed_record,
+                                  pass_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,23 @@ host rotates each block to its least rotation, whose suffix order is
 its rotation order, so ranks at ``i + k`` are read from an ISA extended
 with position-coded end sentinels ``n - p - 2^30`` (``_extend``).
 
-The multi-key stable sorts become ``torch.sort(stable=True)`` passes
-over keys packed two to an int64, ``(signed hi << 32) + unsigned lo``,
-taken from the last key pair to the first (LSD order).  Ties between
-equal key tuples need no particular order: every lane of an equal-key
-class gets the same rank.
+The two suffix sorts, ``_seed16`` and ``_pass8``, run the hand-written
+kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor: a stable LSD radix
+sort of the lanes < n carrying only the suffix array, its 8-bit digits
+read from the rows' bytes (16 passes) or from the ISA through a key
+mapping that fits every key in 24 bits (24 passes), then class starts,
+ranks, unresolved counts and the new ISA by a scatter.  The kernels'
+ISA is defined on the lanes < n only and is 0 past them; no reader
+looks there (``_extend``, ``_pass8``'s key 0 and the emits mask them,
+the primary index reads a lane < n).  For a CPU tensor they run the
+plain versions, ``_seed16_plain`` and ``_pass8_plain``, which also
+fill the pad lanes as JAX does.
+
+The plain multi-key stable sorts are ``torch.sort(stable=True)``
+passes over keys packed two to an int64, ``(signed hi << 32) +
+unsigned lo``, taken from the last key pair to the first (LSD order).
+Ties between equal key tuples need no particular order: every lane of
+an equal-key class gets the same rank.
 
 Layouts follow the JAX package: blocks (B, N) uint8, ns / ms (B,)
 int32, ISA (B, N) int32.
@@ -19,13 +31,22 @@ int32, ISA (B, N) int32.
 
 from __future__ import annotations
 
+import ctypes
+import threading
+
 import numpy as np
 import torch
 
+from lbzip2_tpu_torch import _build
 from lbzip2_tpu_torch.device import record_event, resolve, to_host, upload
 
 _INF = 2 ** 31 - 1
 _BIG = 1 << 30
+MAX_N = 1 << 23  # the kernels' mapped keys, below 2N, fit three 8-bit digits
+
+launches = 0       # _seed16 / _pass8 calls that launched the CUDA kernels
+pass_launches = 0  # of those, the _pass8 calls
+_held = threading.local()  # a thread's kernel scratch, per device
 
 
 def _iota(B, N, dev):
@@ -92,7 +113,7 @@ def _ranks(sorted_keys, perm, nB):
     return _invert(newr, spos, nB), cnt
 
 
-def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
+def _seed16_plain(blocks: torch.Tensor, ns: torch.Tensor):
     """Initial ISA from the 16-byte suffix prefix (k = 16 afterwards).
 
     blocks: (B, N) uint8 Lyndon conjugates; ns: (B,) int32.  Returns
@@ -124,7 +145,7 @@ def _extend(ISA, idxB, nB, N):
     return torch.cat([body, tail], dim=1)
 
 
-def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
+def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
     """One doubling pass: sort by ranks at offsets 0, k, .., 7k (the
     JAX ``_passx`` with m = 8, the only width its main path runs).
 
@@ -148,6 +169,109 @@ def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
         rs.append(r)
     sk, perm = _lex_sort(rs)
     return _ranks(sk, perm, nB)
+
+
+def _lib():
+    lib = _build.load("bwt2_sort")
+    if lib.lbz2t_bwt2_seed.argtypes is None:
+        lib.lbz2t_bwt2_scratch_bytes.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_bwt2_scratch_bytes.restype = ctypes.c_longlong
+        lib.lbz2t_bwt2_seed.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.lbz2t_bwt2_pass.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
+        lib.lbz2t_bwt2_seed.restype = lib.lbz2t_bwt2_pass.restype = \
+            ctypes.c_int
+    return lib
+
+
+def _workspace(dev: torch.device, nbytes: int) -> torch.Tensor:
+    """The calling thread's kernel scratch on ``dev`` (two suffix arrays,
+    the digit counts and totals, the rank carries and a byte a lane: 267
+    MB at (32, 901120)), kept from call to call and only ever grown, so
+    a call allocates nothing.  No call waits for its kernels: work queued on it
+    on one stream is ordered before the next call's on the same stream,
+    and a call on another stream first makes that stream wait for the
+    last one's work."""
+    mine = _held.__dict__.setdefault("buffers", {})  # device -> [buf, stream]
+    stream = torch.cuda.current_stream(dev)
+    held = mine.get(dev)
+    if held is not None and held[1] != stream:
+        stream.wait_stream(held[1])
+        held[0].record_stream(stream)
+        held[1] = stream
+    if held is None or held[0].numel() < nbytes:
+        mine[dev] = held = [torch.empty(nbytes, dtype=torch.uint8,
+                                        device=dev), stream]
+    return held[0]
+
+
+def _launch(name: str, src: torch.Tensor, ns: torch.Tensor, dtype, *extra):
+    """Run ``lbz2t_bwt2_<name>`` on ``src`` (B, N) and ns (B,) on the
+    current stream of src's card: (ISA (B, N) int32, 0 at lanes >= n;
+    cnt (B,) int32).  Nothing waits for the kernels."""
+    global launches
+    dev = src.device
+    if dev.type != "cuda" or ns.device != dev:
+        raise ValueError(f"the bwt2 kernels need src and ns on one CUDA "
+                         f"device, got {src.device} and {ns.device}")
+    if src.dtype != dtype:
+        raise TypeError(f"src must be {dtype}, got {src.dtype}")
+    if src.dim() != 2 or ns.shape != (src.shape[0],):
+        raise ValueError(f"bad shapes {tuple(src.shape)} / "
+                         f"{tuple(ns.shape)}")
+    if not src.is_contiguous():
+        raise ValueError("src must be contiguous")
+    B, N = src.shape
+    if N >= MAX_N:
+        raise ValueError(f"rows of {N} lanes: the kernels take fewer than "
+                         f"{MAX_N}")
+    lib = _lib()  # built before anything is queued; raises without nvcc
+    with torch.cuda.device(dev):  # the C side launches on it
+        isa = torch.empty((B, N), dtype=torch.int32, device=dev)
+        cnt = torch.empty(B, dtype=torch.int32, device=dev)
+        if B == 0 or N == 0:
+            return isa.zero_(), cnt.zero_()
+        ns = ns.to(torch.int32).contiguous()
+        scratch = _workspace(dev, lib.lbz2t_bwt2_scratch_bytes(B, N))
+        stream = torch.cuda.current_stream(dev)
+        err = getattr(lib, f"lbz2t_bwt2_{name}")(
+            src.data_ptr(), ns.data_ptr(), isa.data_ptr(), cnt.data_ptr(),
+            scratch.data_ptr(), B, N, *extra, stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bwt2 {name} kernels' launch failed: "
+                               f"cudaError {err}")
+        launches += 1
+    return isa, cnt
+
+
+def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
+    """Initial ISA from the 16-byte suffix prefix (k = 16 afterwards):
+    (ISA (B, N) int32, cnt (B,) int32).  The kernels of
+    ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA 0 at lanes >= n), the
+    plain version for a CPU tensor."""
+    if blocks.device.type == "cuda":
+        return _launch("seed", blocks, ns, torch.uint8)
+    if blocks.device.type == "cpu":
+        return _seed16_plain(blocks, ns)
+    raise ValueError(f"unsupported device {blocks.device}")
+
+
+def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
+    """One doubling pass by ranks at offsets 0, k, .., 7k: (ISA', cnt).
+    The kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA' 0 at
+    lanes >= n; ISA values in [0, N) at lanes < n, as every ISA of the
+    loop holds), the plain version for a CPU tensor."""
+    global pass_launches
+    if ISA.device.type == "cuda":
+        if k < 1:
+            raise ValueError(f"k must be at least 1, got {k}")
+        out = _launch("pass", ISA, ns, torch.int32, int(k))
+        pass_launches += 1
+        return out
+    if ISA.device.type == "cpu":
+        return _pass8_plain(ISA, k, ns)
+    raise ValueError(f"unsupported device {ISA.device}")
 
 
 def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
@@ -211,11 +335,20 @@ def _emit2(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
 
 
 def _resolve_loop(blocks, ns):
-    """seed16, then x8 passes while any row has unresolved ties.  The
-    loop condition is read on the host once per pass (k = 16, 128, ...:
-    at most 6 passes at n = 900k)."""
-    ISA, cnt = _seed16(blocks, ns)
-    k = 16
+    """seed16, then x8 passes while any row has unresolved ties, at
+    least one.  The loop condition is read on the host once per pass
+    (k = 16, 128, ...: at most 6 passes at n = 900k).
+
+    The first pass is not skipped when the seed leaves no tie, as JAX
+    skips it (lbzip2_tpu/ops/bwt2.py:247): the pads' 16-byte key in the
+    seed is FF FF FF FF then zeros, so a suffix that starts FF FF FF FF
+    and is larger sorts after all N - n pads and keeps a rank n - 1 ..
+    N - 1 past them.  Its order stays right, but the primary index read
+    from it does not.  A pass sorts the pads after every valid lane and
+    gives each lane its slot among the valid ones."""
+    ISA, _ = _seed16(blocks, ns)
+    ISA, cnt = _pass8(ISA, 16, ns)
+    k = 128
     while int(cnt.max()) > 0:
         ISA, cnt = _pass8(ISA, k, ns)
         k *= 8
@@ -252,11 +385,12 @@ class Bwt2Task:
 
     Drive with ready() / step() round-robin across tasks, then take
     result() (rows downloaded, emit="tokens") or result_device()
-    (bytes left on the device, emit="bytes").  Each step dispatches one
-    ``_pass8``.  Up to ``_AHEAD`` passes run ahead of the unresolved
-    counts the host has read: a pass over a resolved ISA is the
-    identity, so one pass too many is harmless and the count's trip to
-    the host overlaps the next pass.
+    (bytes left on the device, emit="bytes").  The seed and the first
+    pass are dispatched when the task is made (see ``_resolve_loop``),
+    then each step dispatches one ``_pass8``.  Up to ``_AHEAD`` passes
+    run ahead of the unresolved counts the host has read: a pass over an
+    ISA that a pass resolved is the identity, so one pass too many is
+    harmless and the count's trip to the host overlaps the next pass.
 
     blocks_np: pre-rotated rows; ns: true lengths; ms: rotation offsets
     (from native.lyndon_prep).  Rows must be primitive (m >= 0).
@@ -275,9 +409,11 @@ class Bwt2Task:
         self.blocks = upload(np.asarray(blocks_np, np.uint8), self.dev)
         self.ns = upload(self.ns_np, self.dev)
         self.ms = upload(np.asarray(ms, np.int32), self.dev)
-        self.ISA, cnt = _seed16(self.blocks, self.ns)
+        # the first pass always runs (see _resolve_loop)
+        self.ISA, cnt = _pass8(_seed16(self.blocks, self.ns)[0], 16,
+                               self.ns)
         self.pending = [self._count(cnt)]  # unread counts, oldest first
-        self.k = 16
+        self.k = 128
         self.emit = emit
         self.out = None
         self.out_ev = None

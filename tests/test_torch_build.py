@@ -80,8 +80,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
-KERNELS = ["bitpack", "code_lengths", "crc32", "em_chain", "huffdec",
-           "ibwt", "mtf_ranks", "sort_sweeps"]
+KERNELS = ["bitpack", "bwt2_sort", "code_lengths", "crc32", "em_chain",
+           "huffdec", "ibwt", "mtf_ranks", "sort_sweeps"]
 
 
 def test_every_kernel_source_is_found():
@@ -89,8 +89,9 @@ def test_every_kernel_source_is_found():
 
 
 def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
-    """The repository's eight sources, the CRC and the bit packer among
-    them, each built by a compiler process of its own."""
+    """The repository's nine sources, the CRC, the bit packer and the
+    BWT's suffix sort among them, each built by a compiler process of
+    its own."""
     import shutil
 
     csrc = tmp_path / "csrc"
@@ -115,7 +116,7 @@ def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
     assert sorted(_build.build_log) == KERNELS
 
 
-@pytest.mark.parametrize("name", ["crc32", "bitpack"])
+@pytest.mark.parametrize("name", ["crc32", "bitpack", "bwt2_sort"])
 def test_missing_toolchain_raises_for_new_kernels(name, tmp_path,
                                                   monkeypatch):
     def no_nvcc():
@@ -127,3 +128,43 @@ def test_missing_toolchain_raises_for_new_kernels(name, tmp_path,
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load(name)
+
+
+def _no_nvcc(tmp_path, monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built")
+
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+
+
+@pytest.mark.parametrize("fn", ["_seed16", "_pass8"])
+def test_bwt2_wrappers_raise_for_a_cuda_tensor_without_nvcc(fn, tmp_path,
+                                                           monkeypatch):
+    """A CUDA tensor (a fake one: this box has no card) reaches the
+    kernels' build and raises; nothing falls back to the plain version,
+    and no launch is counted."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from lbzip2_tpu_torch.ops import bwt2
+
+    _no_nvcc(tmp_path, monkeypatch)
+    with FakeTensorMode():
+        src = torch.zeros((2, 64), device="cuda",
+                          dtype=torch.uint8 if fn == "_seed16"
+                          else torch.int32)
+        ns = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+    before = bwt2.launches, bwt2.pass_launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        if fn == "_seed16":
+            bwt2._seed16(src, ns)
+        else:
+            bwt2._pass8(src, 16, ns)
+    assert (bwt2.launches, bwt2.pass_launches) == before
+    meta = torch.zeros((2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(bwt2, fn)(*((meta, ns) if fn == "_seed16"
+                            else (meta, 16, ns)))
