@@ -180,13 +180,19 @@ Phases (any failure exits non-zero before the last line is printed):
              an (8, 8192) bucket with n = 0, 1, 2 and N and a row whose
              first suffix the seed ranks past the pads; on each the
              seed, every pass of the resolve loop and one identity pass
-             past it, then bwt2_bytes' rows and primaries against the
-             plain loop and emit (the bucket's also against the host C
-             BWT); CUDA-event times of both functions
+             past it; the whole loop on the card under
+             torch.cuda.set_sync_debug_mode("error") (no host read), its
+             ISA and each row's passes that did work against the plain
+             loop's (text 1, deep repeats 6); then bwt2_bytes' rows and
+             primaries against the plain loop and emit (the bucket's also
+             against the host C BWT); the tied lanes the seed leaves and
+             the lanes and classes of each of the pass's size bins;
+             CUDA-event times of both functions and of the loop
              against their plain versions on each case and of one
              torch.sort(stable=True) of a (32, 901120) int64 key, their
              library_ms.  (It runs after phase 15.)  Phases 6, 7, 16, 17
-             and 18 assert that their paths launched both.
+             and 18 assert that their paths launched both, and phase 6
+             that every batch's trace holds its BWT passes.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -576,7 +582,7 @@ def device_us(fn, reps: int = 5) -> dict:
             for e in prof.key_averages() if e.device_time_total}
 
 
-OPS = (("bwt2", ("_seed16", "_pass8", "_emit_bytes")),
+OPS = (("bwt2", ("_seed16", "_pass8", "_pass_in_place", "_emit_bytes")),
        ("chain", ("_compact_syms", "mtf_ranks_rows", "_rle2_batch",
                   "_flat_hist", "em_chain_rows", "_pack_groups",
                   "_flatten_words")))
@@ -618,7 +624,8 @@ def op_table(text: bytes, batch, dev) -> None:
     _, _, cmaps, primary = batch
     mods = {m: importlib.import_module(f"lbzip2_tpu_torch.ops.{m}")
             for m, _ in OPS}
-    kept = {(m, n): getattr(mods[m], n) for m, names in OPS for n in names}
+    kept = {(m, n): getattr(mods[m], n) for m, names in OPS for n in names
+            if hasattr(mods[m], n)}  # a parent tree has no _pass_in_place
     for (m, n), fn in kept.items():
         setattr(mods[m], n, timed(f"{m}.{n}", fn))
     try:
@@ -1580,7 +1587,8 @@ def cli_phase(few: bytes) -> None:
 def kernels_only(seed: int, profiled: bool, dev) -> int:
     """--kernels: the kernels of the package on the path (MTF ranks,
     sweeps, Huffman group decode, inverse BWT, code lengths, the EM loop,
-    CRC, bit packer, the BWT's seed and pass; a checkout without the CRC
+    CRC, bit packer, the BWT's seed, pass and loop, the pass and the loop
+    also on phase 19's other kinds of rows; a checkout without the CRC
     and the bit packer times the six it has, one without the BWT's
     kernels its plain suffix sorts), held against their plain versions
     (tolerance 0; the BWT's on the ISA's lanes < n and the counts) and timed
@@ -1593,7 +1601,7 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
     from lbzip2_tpu_torch.ops import (bwt2, chain, huffdec, huffenc, ibwt,
                                       mtf_pallas, sort_sweeps)
 
-    _, text = make_data(seed, text_blocks=ROWS)
+    data, text = make_data(seed, text_blocks=ROWS)
     mtf_cases, batch = mtf_timed_cases(text, dev)
     bwt, ns, cmaps, primary = batch
     rows = [(bwt[r, :ns[r]].cpu().numpy(), int(primary[r])) for r in range(8)]
@@ -1645,13 +1653,30 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
     calls["bwt2_pass8_text_32x901120"] = (
         lambda i, n: bwt2._pass8(i, 16, n),
         lambda i, n: pass_plain(i, 16, n), (seed_isa, ns_d))
+    # the loop its main path runs, and on phase 19's other kinds of rows
+    # (their random blocks from this run's shorter data) the pass too
+    cases = [("text_32x901120", rows_d, ns_d)] + [
+        (case, *(torch.from_numpy(a).to(dev) for a in host[:2]))
+        for case, host in bwt2_cases(data, text).items()
+        if case != "text_32x901120"]
+    none = torch.zeros(1, device=dev)
+    for case, r, n in cases:
+        if case != "text_32x901120":
+            calls[f"bwt2_pass8_{case}"] = (
+                lambda i, m: bwt2._pass8(i, 16, m),
+                lambda i, m: pass_plain(i, 16, m), (seed_plain(r, n)[0], n))
+        if hasattr(bwt2, "_seed16_plain"):
+            calls[f"bwt2_loop_{case}"] = (
+                lambda i, m: (bwt2._resolve_loop(i, m), none),
+                lambda i, m: (plain_loop(bwt2, i, m)[0], none), (r, n))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
         got, want = kernel(*a), plain(*a)
         torch.cuda.synchronize()
         if name.startswith("bwt2"):  # the ISA's lanes < n, and cnt
-            got, want = ((valid_lanes(x[0], ns_d), x[1]) for x in (got, want))
+            got, want = ((valid_lanes(x[0], a[-1]), x[1])
+                         for x in (got, want))
         res["max_abs_err"][name] = max_err_of(got, want)
         res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if name.startswith(
             ("code", "huff", "crc", "bitpack")) else 10)
@@ -1734,7 +1759,8 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
     decompress_parallel twice and decompress_stream once with both
     device stages on, and the host C path, each equal to the data; per
     run its MB/s, the engines' block counts, every batch's times and the
-    decoder's stats (its stage seconds)."""
+    decoder's stats (its stage seconds); each compress run's peak of
+    device memory."""
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.ops import huffdec, ibwt
     from lbzip2_tpu_torch.parallel import decode
@@ -1742,20 +1768,22 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
     res = {"package": os.path.dirname(encoder.__file__), "card": card_line(),
            "bytes": len(data), "compress": [], "decompress": []}
     batch_keys = ("rows", "claimed_t", "claim_s", "prep_s", "dispatch_s",
-                  "ready_s", "done_t")
+                  "ready_s", "done_t", "bwt2_passes")
     for steal, turns in ((True, 4), (False, 1)):
         encoder._HOST_STEAL = encoder._STEALBACK = steal
         for turn in range(turns):
+            torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.time()
             out = encoder.compress(data, 9, device=dev)
             dt = time.time() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
             st = encoder.last_stats
             assert out == ref, "compress differs from bin/lbzip2 -9"
             if steal and turn == 0:
                 continue  # the first call of the process is cold
             res["compress"].append({
                 "config": "default" if steal else "device_only",
-                "s": dt, "mbps": len(data) / dt / 1e6,
+                "s": dt, "mbps": len(data) / dt / 1e6, "peak_bytes": peak,
                 **{k: st[k] for k in ("device_blocks", "host_blocks",
                                       "stale_rows")},
                 "batches": [{k: t.get(k) for k in batch_keys}
@@ -2005,15 +2033,34 @@ def sort_library_ms(dev) -> float:
     return cuda_ms(lambda: torch.sort(key, dim=1, stable=True), 10)
 
 
+def plain_loop(bwt2, rows, ns):
+    """The resolve loop on the plain suffix sorts, on rows' device:
+    (ISA, passes (B,) int32), a row's passes counted as the kernels'
+    loop counts them: the first, then one for each pass before that left
+    the row a tie."""
+    isa, cnt = bwt2._pass8_plain(bwt2._seed16_plain(rows, ns)[0], 16, ns)
+    passes = torch.ones(rows.shape[0], dtype=torch.int32, device=rows.device)
+    k = 128
+    while int(cnt.max()) > 0:
+        passes += (cnt > 0).int()
+        isa, cnt = bwt2._pass8_plain(isa, k, ns)
+        k *= 8
+    return isa, passes
+
+
 def bwt2_phase(data: bytes, text: bytes, dev) -> list:
     """19. The suffix-sort kernels (csrc/bwt2_sort.cu) against their
     plain versions on every case of bwt2_cases, tolerance 0 on the valid
     lanes of the ISA and on the counts: the seed, every pass of the
     resolve loop and one identity pass past it (which must give back its
-    input), then bwt2_bytes' rows and primaries against the plain loop
-    and emit (the bucket's also against the host C BWT); CUDA-event
-    times of both functions against their plain versions on each case.
-    Returns the two kernel records."""
+    input); the whole loop on the card under
+    torch.cuda.set_sync_debug_mode("error") (no host read), its ISA and
+    each row's passes against the plain loop's; then bwt2_bytes' rows
+    and primaries against the plain loop and emit (the bucket's also
+    against the host C BWT); the classes the seed leaves, by the pass's
+    size bins; CUDA-event times of both functions and of the loop
+    against their plain versions on each case.  Returns the two kernel
+    records."""
     from lbzip2_tpu_torch import native
     from lbzip2_tpu_torch.ops import bwt2
 
@@ -2030,6 +2077,7 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
 
         isa, cnt = bwt2._seed16(rows, ns)
         check("seed", (isa, cnt), bwt2._seed16_plain(rows, ns))
+        bins = bwt2.class_bins(isa, ns)
         seed_isa, k, passes = isa, 16, 0
         while True:  # the loop's passes (at least one), then one more
             out = bwt2._pass8(isa, k, ns)
@@ -2042,18 +2090,28 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
             isa, cnt = out
             k, passes = k * 8, passes + 1
             assert passes <= 8, f"{name}: the loop does not end"
+        # the whole loop on the card: nothing may wait for the card
+        want_isa, want_passes = plain_loop(bwt2, rows, ns)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop_isa = bwt2._resolve_loop(rows, ns)
+            row_passes = bwt2.last_passes()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(valid_lanes(loop_isa, ns),
+                           valid_lanes(want_isa, ns)), \
+            f"{name}: the loop on the card differs from the plain loop"
+        assert torch.equal(row_passes, want_passes) and \
+            int(row_passes.max()) == passes, \
+            f"{name}: the loop's passes {row_passes.tolist()} against " \
+            f"{want_passes.tolist()}"
         # the emit reads byte n - 1 of a row: rows of n = 0 are never
         # shipped, and take no part here
         kept = torch.nonzero(ns > 0)[:, 0]
         rows1, ns1, ms1 = rows[kept], ns[kept], ms[kept]
         bwt_k, prim_k = bwt2.bwt2_bytes(rows1, ns1, ms1)
-        isa_p, cnt_p = bwt2._pass8_plain(
-            bwt2._seed16_plain(rows1, ns1)[0], 16, ns1)
-        k = 128
-        while int(cnt_p.max()) > 0:
-            isa_p, cnt_p = bwt2._pass8_plain(isa_p, k, ns1)
-            k *= 8
-        bwt_p, prim_p = bwt2._emit_bytes(rows1, isa_p, ns1, ms1)
+        bwt_p, prim_p = bwt2._emit_bytes(rows1, want_isa[kept], ns1, ms1)
         assert torch.equal(prim_k, prim_p) and torch.equal(
             valid_lanes(bwt_k, ns1), valid_lanes(bwt_p, ns1)), \
             f"bwt2_bytes with the kernels differs on {name}"
@@ -2069,11 +2127,16 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
                                       3),
              "pass_ms": cuda_ms(lambda: bwt2._pass8(seed_isa, 16, ns), 10),
              "pass_plain_ms": cuda_ms(
-                 lambda: bwt2._pass8_plain(seed_isa, 16, ns), 3)}
+                 lambda: bwt2._pass8_plain(seed_isa, 16, ns), 3),
+             "loop_ms": cuda_ms(lambda: bwt2._resolve_loop(rows, ns), 5),
+             "loop_plain_ms": cuda_ms(lambda: plain_loop(bwt2, rows, ns),
+                                      2)}
         times[name] = t
         log(f"bwt2 kernels vs plain [{name}, {tuple(rows.shape)}]: equal "
-            f"on the seed, {passes} passes and the identity pass, and on "
-            f"bwt2_bytes; {json.dumps(t)}")
+            f"on the seed, {passes} passes and the identity pass, on the "
+            f"loop under sync debug mode (passes a row "
+            f"{row_passes.tolist()}) and on bwt2_bytes; after the seed, "
+            f"[lanes, classes] by bin: {json.dumps(bins)}; {json.dumps(t)}")
     lib_ms = sort_library_ms(dev)
     log(f"bwt2: torch.sort(stable=True), (32, {WIDTH}) int64: "
         f"{lib_ms:.3f} ms; launches in this phase {bwt2.launches} "
@@ -2089,7 +2152,8 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
                 "max_abs_err": errs[which], "ms": text_t[f"{which}_ms"],
                 "plain_ms": text_t[f"{which}_plain_ms"],
                 "cases": {c: {k: v for k, v in t.items()
-                              if k.startswith(which) or k == "passes"}
+                              if k.startswith((which, "loop"))
+                              or k == "passes"}
                           for c, t in times.items()},
                 **bound(nbytes, live), "library_ms": lib_ms}
 
@@ -2461,6 +2525,7 @@ def main(argv=None) -> int:
             log(f"  batch {i}: shape {tele['shape']} claimed at "
                 f"{tele['claimed_t']} s, prep {tele['prep_s']} s dispatch "
                 f"{tele['dispatch_s']} s ready {tele['ready_s']} s, "
+                f"BWT passes {tele.get('bwt2_passes')}, "
                 f"claim->deliver {tele['claim_s']} s; chain_stages "
                 f"{json.dumps(tele.get('chain_stages'))}")
 
@@ -2469,6 +2534,9 @@ def main(argv=None) -> int:
         mstep_launches == (CLUSTER_FACTOR - 1) * em_launches and \
         not any(off_path.values()), \
         f"chain batches off the EM kernels: {em_launches} loops, {off_path}"
+    assert all(t.get("bwt2_passes", 0) >= 1
+               for t in stats["batch_trace"]), \
+        "a batch's trace lacks the BWT's passes"
     assert all(t["shape"][0] == t["rows"] for t in stats["batch_trace"]) and \
         sum(t["rows"] for t in stats["batch_trace"]) == eligible, \
         "a batch shipped rows it did not hold"

@@ -19,8 +19,11 @@ The device engine, in both modes (``_DEVICE_CHAIN``, set from
 
   chain mode (default):
     dispatch thread: Lyndon prep -> pinned upload -> ops/bwt2.bwt2_bytes
+                     (queued whole: the BWT reads nothing on the host)
                      -> event recorded after dispatch
-    fetch thread:    block on the event -> ops/chain.chain_payloads
+    fetch thread:    block on the event -> the BWT's passes a row
+                     (``batch_trace[*]["bwt2_passes"]``, their max) ->
+                     ops/chain.chain_payloads
                      (MTF kernel, RLE2, the EM kernels, pack on the
                      device; headers and splice on the host)
   token mode (LBZ2_DEVICE_CHAIN=0):
@@ -57,7 +60,7 @@ from lbzip2_tpu_torch.core import crc32
 from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
 from lbzip2_tpu_torch.device import (on, record_event, resolve_all,
                                      to_host, upload, wait_event)
-from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens
+from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens, last_passes
 from lbzip2_tpu_torch.ops.chain import chain_payloads
 from lbzip2_tpu_torch.ref import rle1
 
@@ -483,7 +486,8 @@ class _TorchPool:
                         # rows are fetched only past the token capacity
                         outs = (to_host(tokens), raw, to_host(counts),
                                 to_host(primary))
-                    outs += (record_event(dev),)
+                    # the BWT's passes a row, read behind the batch's event
+                    outs += (to_host(last_passes()), record_event(dev))
                 tele["dispatch_s"] = round(time.time() - t0, 3)
                 gen = _GATE.inc()
                 with self.q_lock:
@@ -553,9 +557,10 @@ class _TorchPool:
         """Token-mode completion: wait for the batch and its copies,
         queue each row's run tokens for the host entropy coder; a row
         over the token capacity downloads its raw bytes alone."""
-        tokens, raw, run_counts, primary, ev = outs
+        tokens, raw, run_counts, primary, passes, ev = outs
         t0 = time.time()
         self._wait_ready(ev)
+        tele["bwt2_passes"] = int(passes.max())
         counts = run_counts.numpy()
         prim = primary.numpy()
         tele["ready_s"] = round(time.time() - t0, 3)
@@ -580,9 +585,10 @@ class _TorchPool:
     def _fetch_chain(self, ids, spans, outs, tele):
         """Entropy-code one BWT batch on the device and deliver payloads;
         rows that overflow the pack width re-encode on the host."""
-        bwt_dev, primary, ev = outs
+        bwt_dev, primary, passes, ev = outs
         t0 = time.time()
         self._wait_ready(ev)
+        tele["bwt2_passes"] = int(passes.max())
         ns = np.array([s.data.size for s in spans], np.int32)
         cmaps = np.stack([np.asarray(s.cmap, np.uint8) for s in spans])
         crcs = np.array(

@@ -204,10 +204,14 @@ class _CollectArena(threading.local):
     the timed pipeline; reuse keeps the pages warm across calls."""
 
     def ensure(self, out_cap: int, max_blocks: int):
+        """Grow each buffer that is too small, on its own; never shrink
+        one (the output buffer keeps its warm pages when only the block
+        count grows)."""
         if getattr(self, "out_buf", None) is None or \
-                self.out_buf.size < out_cap or \
-                self.starts.size < max_blocks:
+                self.out_buf.size < out_cap:
             self.out_buf = np.empty(out_cap, np.uint8)
+        if getattr(self, "starts", None) is None or \
+                self.starts.size < max_blocks:
             self.starts = np.empty(max_blocks, np.int64)
             self.ends = np.empty(max_blocks, np.int64)
             self.out_lens = np.empty(max_blocks, np.int64)
@@ -422,7 +426,9 @@ def bwt(block: np.ndarray, scratch: bool = False
 
 def itb_bwt_rot(R: np.ndarray, want: int = -1) -> tuple[np.ndarray, int]:
     """Two-stage B*-subset BWT over a least rotation R (differential
-    test entry; -9 sentinel raises on no-B* inputs)."""
+    test entry).  Raises where itbwt.c gives up: ValueError on -9 (no B*
+    suffix) and -7 (a row of more than 2^23 - 1 bytes: its packed
+    entries), MemoryError on -8."""
     lib = get_lib()
     R = np.ascontiguousarray(R, dtype=np.uint8)
     out = np.empty(R.size, np.uint8)
@@ -430,7 +436,13 @@ def itb_bwt_rot(R: np.ndarray, want: int = -1) -> tuple[np.ndarray, int]:
                       out.ctypes.data_as(ctypes.c_void_p), want)
     if idx == -9:
         raise ValueError("no B* suffix")
-    assert idx >= -1
+    if idx == -7:
+        raise ValueError(f"a row of {R.size} bytes: itb_bwt packs "
+                         f"positions in 23 bits")
+    if idx == -8:
+        raise MemoryError("itb_bwt: out of memory")
+    if idx < -1:
+        raise ValueError(f"itb_bwt failed: {idx}")
     return out, int(idx)
 
 

@@ -8,16 +8,21 @@ its rotation order, so ranks at ``i + k`` are read from an ISA extended
 with position-coded end sentinels ``n - p - 2^30`` (``_extend``).
 
 The two suffix sorts, ``_seed16`` and ``_pass8``, run the hand-written
-kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor: a stable LSD radix
-sort of the lanes < n carrying only the suffix array, its 8-bit digits
-read from the rows' bytes (16 passes) or from the ISA through a key
-mapping that fits every key in 24 bits (24 passes), then class starts,
-ranks, unresolved counts and the new ISA by a scatter.  The kernels'
-ISA is defined on the lanes < n only and is 0 past them; no reader
-looks there (``_extend``, ``_pass8``'s key 0 and the emits mask them,
-the primary index reads a lane < n).  For a CPU tensor they run the
-plain versions, ``_seed16_plain`` and ``_pass8_plain``, which also
-fill the pad lanes as JAX does.
+kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor.  The seed is a
+stable LSD radix sort of the lanes < n carrying only the suffix array,
+its 8-bit digits read from the rows' bytes (16 passes), then class
+starts, ranks, unresolved counts and the new ISA by a scatter.  A pass
+is a segmented sort: key 0 is the ISA, so only the classes of two or
+more lanes are sorted, by keys 1 to 7 mapped below 2N, each in a bin
+by its size (``SEG_SMALL``, ``SEG_BLOCKS``; larger classes by the
+seed's radix passes over their lanes alone), and the ISA is updated in
+place.  The kernels' ISA is defined on the lanes < n only: the seed
+writes 0 past them and a pass leaves them as they are; no reader looks
+there (``_extend``, ``_pass8``'s key 0 and the emits mask them, the
+primary index reads a lane < n).  For a CPU tensor they run the plain
+versions, ``_seed16_plain`` and ``_pass8_plain``, which also fill the
+pad lanes as JAX does.  The resolve loop queues its passes on the card
+and reads nothing there.
 
 The plain multi-key stable sorts are ``torch.sort(stable=True)``
 passes over keys packed two to an int64, ``(signed hi << 32) +
@@ -43,9 +48,14 @@ from lbzip2_tpu_torch.device import record_event, resolve, to_host, upload
 _INF = 2 ** 31 - 1
 _BIG = 1 << 30
 MAX_N = 1 << 23  # the kernels' mapped keys, below 2N, fit three 8-bit digits
+# a pass's size bins (csrc/bwt2_sort.cu kSmall, kBinCap0..2): classes of
+# 2 to SEG_SMALL lanes are ranked a thread a lane, the rest up to the
+# last block capacity a block a class, larger ones by radix passes
+SEG_SMALL = 32
+SEG_BLOCKS = (256, 1024, 4096)
 
-launches = 0       # _seed16 / _pass8 calls that launched the CUDA kernels
-pass_launches = 0  # of those, the _pass8 calls
+launches = 0       # seeds and passes that launched the CUDA kernels
+pass_launches = 0  # of those, the passes (_pass8, and the loop's on the card)
 _held = threading.local()  # a thread's kernel scratch, per device
 
 
@@ -171,6 +181,27 @@ def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
     return _ranks(sk, perm, nB)
 
 
+def class_bins(ISA: torch.Tensor, ns: torch.Tensor) -> dict:
+    """The classes of equal ISA values among the lanes < n that a pass
+    over ``ISA`` sorts, by the kernels' size bins, summed over the rows:
+    {"tied_lanes": .., bin name: [lanes, classes], ..}.  Plain PyTorch,
+    on ISA's device."""
+    B, N = ISA.shape
+    valid = _iota(B, N, ISA.device) < ns[:, None]
+    row = torch.arange(B, device=ISA.device)[:, None] * N
+    sizes = torch.bincount((row + ISA.long())[valid], minlength=B * N)
+    sizes = sizes[sizes >= 2]
+    edges = (2, SEG_SMALL + 1, *(c + 1 for c in SEG_BLOCKS), None)
+    names = (f"small_2_{SEG_SMALL}",
+             *(f"block_{lo}_{c}" for lo, c in zip(edges[1:], SEG_BLOCKS)),
+             f"radix_{SEG_BLOCKS[-1] + 1}_up")
+    out = {"tied_lanes": int(sizes.sum())}
+    for name, lo, hi in zip(names, edges, edges[1:]):
+        inside = sizes[(sizes >= lo) & ((sizes < hi) if hi else True)]
+        out[name] = [int(inside.sum()), int(inside.numel())]
+    return out
+
+
 def _lib():
     lib = _build.load("bwt2_sort")
     if lib.lbz2t_bwt2_seed.argtypes is None:
@@ -178,39 +209,46 @@ def _lib():
         lib.lbz2t_bwt2_scratch_bytes.restype = ctypes.c_longlong
         lib.lbz2t_bwt2_seed.argtypes = [ctypes.c_void_p] * 5 + \
             [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.lbz2t_bwt2_pass.argtypes = [ctypes.c_void_p] * 5 + \
+        lib.lbz2t_bwt2_pass.argtypes = [ctypes.c_void_p] * 7 + \
             [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
         lib.lbz2t_bwt2_seed.restype = lib.lbz2t_bwt2_pass.restype = \
             ctypes.c_int
     return lib
 
 
-def _workspace(dev: torch.device, nbytes: int) -> torch.Tensor:
-    """The calling thread's kernel scratch on ``dev`` (two suffix arrays,
-    the digit counts and totals, the rank carries and a byte a lane: 267
-    MB at (32, 901120)), kept from call to call and only ever grown, so
-    a call allocates nothing.  No call waits for its kernels: work queued on it
-    on one stream is ordered before the next call's on the same stream,
-    and a call on another stream first makes that stream wait for the
-    last one's work."""
-    mine = _held.__dict__.setdefault("buffers", {})  # device -> [buf, stream]
+def _workspace(dev: torch.device, nbytes: int, nzeros: int):
+    """The calling thread's kernel scratch on ``dev``: ``nbytes`` of
+    scratch (the seed's two suffix arrays, digit counts, carries and a
+    byte a lane, then the pass's S, F, compacted lanes, 32 bytes of keys
+    a lane and the class lists: 1.54 GB at (32, 901120)) and ``nzeros``
+    int32 class counts (115 MB), which are 0 and which every pass leaves
+    0.  Both are kept from call to call and only ever grown, so a call
+    allocates nothing.  No call waits for its kernels: work queued on it on one
+    stream is ordered before the next call's on the same stream, and a
+    call on another stream first makes that stream wait for the last
+    one's work."""
+    mine = _held.__dict__.setdefault("buffers", {})  # device -> dict
     stream = torch.cuda.current_stream(dev)
     held = mine.get(dev)
-    if held is not None and held[1] != stream:
-        stream.wait_stream(held[1])
-        held[0].record_stream(stream)
-        held[1] = stream
-    if held is None or held[0].numel() < nbytes:
-        mine[dev] = held = [torch.empty(nbytes, dtype=torch.uint8,
-                                        device=dev), stream]
-    return held[0]
+    if held is not None and held["stream"] != stream:
+        stream.wait_stream(held["stream"])
+        for buf in (held["scratch"], held["counts"]):
+            buf.record_stream(stream)
+        held["stream"] = stream
+    if held is None:
+        held = mine[dev] = {"stream": stream, "scratch": None,
+                            "counts": None}
+    if held["scratch"] is None or held["scratch"].numel() < nbytes:
+        held["scratch"] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if held["counts"] is None or held["counts"].numel() < nzeros:
+        held["counts"] = torch.zeros(nzeros, dtype=torch.int32, device=dev)
+    return held["scratch"], held["counts"]
 
 
-def _launch(name: str, src: torch.Tensor, ns: torch.Tensor, dtype, *extra):
-    """Run ``lbz2t_bwt2_<name>`` on ``src`` (B, N) and ns (B,) on the
-    current stream of src's card: (ISA (B, N) int32, 0 at lanes >= n;
-    cnt (B,) int32).  Nothing waits for the kernels."""
-    global launches
+def _checked(src: torch.Tensor, ns: torch.Tensor, dtype):
+    """Raise unless ``src`` (B, N) of ``dtype`` and ns (B,) lie on one
+    CUDA device and the kernels take them; then the built library (it
+    raises without nvcc, before anything is queued)."""
     dev = src.device
     if dev.type != "cuda" or ns.device != dev:
         raise ValueError(f"the bwt2 kernels need src and ns on one CUDA "
@@ -222,27 +260,19 @@ def _launch(name: str, src: torch.Tensor, ns: torch.Tensor, dtype, *extra):
                          f"{tuple(ns.shape)}")
     if not src.is_contiguous():
         raise ValueError("src must be contiguous")
-    B, N = src.shape
-    if N >= MAX_N:
-        raise ValueError(f"rows of {N} lanes: the kernels take fewer than "
-                         f"{MAX_N}")
-    lib = _lib()  # built before anything is queued; raises without nvcc
-    with torch.cuda.device(dev):  # the C side launches on it
-        isa = torch.empty((B, N), dtype=torch.int32, device=dev)
-        cnt = torch.empty(B, dtype=torch.int32, device=dev)
-        if B == 0 or N == 0:
-            return isa.zero_(), cnt.zero_()
-        ns = ns.to(torch.int32).contiguous()
-        scratch = _workspace(dev, lib.lbz2t_bwt2_scratch_bytes(B, N))
-        stream = torch.cuda.current_stream(dev)
-        err = getattr(lib, f"lbz2t_bwt2_{name}")(
-            src.data_ptr(), ns.data_ptr(), isa.data_ptr(), cnt.data_ptr(),
-            scratch.data_ptr(), B, N, *extra, stream.cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"bwt2 {name} kernels' launch failed: "
-                               f"cudaError {err}")
-        launches += 1
-    return isa, cnt
+    if src.shape[1] >= MAX_N:
+        raise ValueError(f"rows of {src.shape[1]} lanes: the kernels take "
+                         f"fewer than {MAX_N}")
+    return _lib()
+
+
+def _launched(name: str, err: int) -> None:
+    """Count a launch of the kernels, or raise on its error."""
+    global launches
+    if err != 0:
+        raise RuntimeError(f"bwt2 {name} kernels' launch failed: "
+                           f"cudaError {err}")
+    launches += 1
 
 
 def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
@@ -250,28 +280,73 @@ def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
     (ISA (B, N) int32, cnt (B,) int32).  The kernels of
     ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA 0 at lanes >= n), the
     plain version for a CPU tensor."""
-    if blocks.device.type == "cuda":
-        return _launch("seed", blocks, ns, torch.uint8)
     if blocks.device.type == "cpu":
         return _seed16_plain(blocks, ns)
-    raise ValueError(f"unsupported device {blocks.device}")
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    lib = _checked(blocks, ns, torch.uint8)
+    B, N = blocks.shape
+    dev = blocks.device
+    with torch.cuda.device(dev):  # the C side launches on it
+        isa = torch.empty((B, N), dtype=torch.int32, device=dev)
+        cnt = torch.empty(B, dtype=torch.int32, device=dev)
+        if B == 0 or N == 0:
+            return isa.zero_(), cnt.zero_()
+        ns = ns.to(torch.int32).contiguous()
+        scratch, _ = _workspace(dev, lib.lbz2t_bwt2_scratch_bytes(B, N),
+                                B * N)
+        _launched("seed", lib.lbz2t_bwt2_seed(
+            blocks.data_ptr(), ns.data_ptr(), isa.data_ptr(), cnt.data_ptr(),
+            scratch.data_ptr(), B, N,
+            torch.cuda.current_stream(dev).cuda_stream))
+    return isa, cnt
+
+
+def _pass_in_place(lib, isa: torch.Tensor, k: int, ns: torch.Tensor,
+                   prev: torch.Tensor | None, cnt: torch.Tensor,
+                   passes: torch.Tensor | None) -> None:
+    """One segmented pass on the card, in place on ``isa`` (checked by
+    the caller): cnt (B,) gets the unresolved counts; a row whose
+    ``prev`` count is 0 is skipped (the identity, exactly: its ISA is
+    resolved); ``passes`` (B,) counts the rows' passes that were not."""
+    global pass_launches
+    B, N = isa.shape
+    if B == 0 or N == 0:
+        cnt.zero_()
+        return
+    dev = isa.device
+    with torch.cuda.device(dev):
+        ns = ns.to(torch.int32).contiguous()
+        scratch, counts = _workspace(
+            dev, lib.lbz2t_bwt2_scratch_bytes(B, N), B * N)
+        _launched("pass", lib.lbz2t_bwt2_pass(
+            isa.data_ptr(), ns.data_ptr(),
+            None if prev is None else prev.data_ptr(), cnt.data_ptr(),
+            None if passes is None else passes.data_ptr(),
+            counts.data_ptr(), scratch.data_ptr(), B, N, int(k),
+            torch.cuda.current_stream(dev).cuda_stream))
+    pass_launches += 1
 
 
 def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
     """One doubling pass by ranks at offsets 0, k, .., 7k: (ISA', cnt).
-    The kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA' 0 at
-    lanes >= n; ISA values in [0, N) at lanes < n, as every ISA of the
-    loop holds), the plain version for a CPU tensor."""
-    global pass_launches
-    if ISA.device.type == "cuda":
-        if k < 1:
-            raise ValueError(f"k must be at least 1, got {k}")
-        out = _launch("pass", ISA, ns, torch.int32, int(k))
-        pass_launches += 1
-        return out
+    The segmented kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor, on
+    a copy of ``ISA`` (ISA values in [0, N) at lanes < n, as every ISA of
+    the loop holds; ISA' is defined on the lanes < n, the others keep
+    the input's values), the plain version for a CPU tensor."""
     if ISA.device.type == "cpu":
         return _pass8_plain(ISA, k, ns)
-    raise ValueError(f"unsupported device {ISA.device}")
+    if ISA.device.type != "cuda":
+        raise ValueError(f"unsupported device {ISA.device}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    lib = _checked(ISA, ns, torch.int32)
+    with torch.cuda.device(ISA.device):
+        out = ISA.clone()
+        cnt = torch.empty(ISA.shape[0], dtype=torch.int32,
+                          device=ISA.device)
+        _pass_in_place(lib, out, k, ns, None, cnt, None)
+    return out, cnt
 
 
 def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
@@ -334,24 +409,65 @@ def _emit2(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
     return tokens, raw, run_counts, primary
 
 
+def loop_passes(N: int) -> int:
+    """Passes after which every primitive row of width N is resolved:
+    the least P >= 1 with 16 * 8**P >= N (6 at 901120, 3 at 8192).
+    Then every suffix's key spans more than the row, and suffixes of
+    one row differ in length."""
+    P = 1
+    while 16 * 8 ** P < N:
+        P += 1
+    return P
+
+
+def last_passes() -> torch.Tensor | None:
+    """(B,) int32, on the blocks' device: the passes of each row of the
+    calling thread's last ``_resolve_loop`` that were not skipped (the
+    first, then one for each earlier pass that left the row a tie).  A
+    CUDA tensor is read only behind the batch's event."""
+    return getattr(_held, "passes", None)
+
+
 def _resolve_loop(blocks, ns):
     """seed16, then x8 passes while any row has unresolved ties, at
-    least one.  The loop condition is read on the host once per pass
-    (k = 16, 128, ...: at most 6 passes at n = 900k).
+    least one.
+
+    On the card the loop is queued whole and reads nothing: the seed,
+    then ``loop_passes(N)`` passes in place on one ISA; a pass skips
+    each row that the pass before it left with no tie, on the card, so
+    a row's work stops where JAX's while loop would stop it
+    (lbzip2_tpu/ops/bwt2.py:247).  On the CPU the loop reads its count
+    a pass (k = 16, 128, ...).  ``last_passes`` gives the passes each
+    row ran.
 
     The first pass is not skipped when the seed leaves no tie, as JAX
-    skips it (lbzip2_tpu/ops/bwt2.py:247): the pads' 16-byte key in the
-    seed is FF FF FF FF then zeros, so a suffix that starts FF FF FF FF
-    and is larger sorts after all N - n pads and keeps a rank n - 1 ..
-    N - 1 past them.  Its order stays right, but the primary index read
-    from it does not.  A pass sorts the pads after every valid lane and
-    gives each lane its slot among the valid ones."""
-    ISA, _ = _seed16(blocks, ns)
-    ISA, cnt = _pass8(ISA, 16, ns)
-    k = 128
-    while int(cnt.max()) > 0:
-        ISA, cnt = _pass8(ISA, k, ns)
-        k *= 8
+    skips it: the pads' 16-byte key in the seed is FF FF FF FF then
+    zeros, so a suffix that starts FF FF FF FF and is larger sorts after
+    all N - n pads and keeps a rank n - 1 .. N - 1 past them.  Its order
+    stays right, but the primary index read from it does not.  A pass
+    sorts the pads after every valid lane and gives each lane its slot
+    among the valid ones."""
+    B, N = blocks.shape
+    ISA, cnt = _seed16(blocks, ns)
+    if blocks.device.type == "cuda":
+        lib = _lib()
+        with torch.cuda.device(blocks.device):
+            passes = torch.zeros(B, dtype=torch.int32, device=blocks.device)
+            prev, spare = None, torch.empty_like(cnt)
+            k = 16
+            for _ in range(loop_passes(N)):
+                _pass_in_place(lib, ISA, k, ns, prev, spare, passes)
+                prev, spare = spare, (cnt if prev is None else prev)
+                k *= 8
+    else:
+        ISA, cnt = _pass8(ISA, 16, ns)
+        passes = torch.ones(B, dtype=torch.int32)
+        k = 128
+        while int(cnt.max()) > 0:
+            passes += (cnt > 0).int()
+            ISA, cnt = _pass8(ISA, k, ns)
+            k *= 8
+    _held.passes = passes
     return ISA
 
 
