@@ -185,8 +185,11 @@ Phases (any failure exits non-zero before the last line is printed):
              ISA and each row's passes that did work against the plain
              loop's (text 1, deep repeats 6); then bwt2_bytes' rows and
              primaries against the plain loop and emit (the bucket's also
-             against the host C BWT); the tied lanes the seed leaves and
-             the lanes and classes of each of the pass's size bins;
+             against the host C BWT); the seed's runs of equal first
+             words (round 0's routes: the lanes and runs of each size
+             bin, and those above it, which take the seed's later
+             rounds), and the tied lanes the seed leaves with the lanes
+             and classes of each of the pass's size bins;
              CUDA-event times of both functions and of the loop
              against their plain versions on each case and of one
              torch.sort(stable=True) of a (32, 901120) int64 key, their
@@ -1587,7 +1590,7 @@ def cli_phase(few: bytes) -> None:
 def kernels_only(seed: int, profiled: bool, dev) -> int:
     """--kernels: the kernels of the package on the path (MTF ranks,
     sweeps, Huffman group decode, inverse BWT, code lengths, the EM loop,
-    CRC, bit packer, the BWT's seed, pass and loop, the pass and the loop
+    CRC, bit packer, the BWT's seed, pass and loop, all three
     also on phase 19's other kinds of rows; a checkout without the CRC
     and the bit packer times the six it has, one without the BWT's
     kernels its plain suffix sorts), held against their plain versions
@@ -1654,7 +1657,8 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
         lambda i, n: bwt2._pass8(i, 16, n),
         lambda i, n: pass_plain(i, 16, n), (seed_isa, ns_d))
     # the loop its main path runs, and on phase 19's other kinds of rows
-    # (their random blocks from this run's shorter data) the pass too
+    # (their random blocks from this run's shorter data) the seed and the
+    # pass too
     cases = [("text_32x901120", rows_d, ns_d)] + [
         (case, *(torch.from_numpy(a).to(dev) for a in host[:2]))
         for case, host in bwt2_cases(data, text).items()
@@ -1662,6 +1666,7 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
     none = torch.zeros(1, device=dev)
     for case, r, n in cases:
         if case != "text_32x901120":
+            calls[f"bwt2_seed16_{case}"] = (bwt2._seed16, seed_plain, (r, n))
             calls[f"bwt2_pass8_{case}"] = (
                 lambda i, m: bwt2._pass8(i, 16, m),
                 lambda i, m: pass_plain(i, 16, m), (seed_plain(r, n)[0], n))
@@ -2078,6 +2083,7 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
         isa, cnt = bwt2._seed16(rows, ns)
         check("seed", (isa, cnt), bwt2._seed16_plain(rows, ns))
         bins = bwt2.class_bins(isa, ns)
+        runs = bwt2.seed_run_bins(rows, ns)
         seed_isa, k, passes = isa, 16, 0
         while True:  # the loop's passes (at least one), then one more
             out = bwt2._pass8(isa, k, ns)
@@ -2135,8 +2141,10 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
         log(f"bwt2 kernels vs plain [{name}, {tuple(rows.shape)}]: equal "
             f"on the seed, {passes} passes and the identity pass, on the "
             f"loop under sync debug mode (passes a row "
-            f"{row_passes.tolist()}) and on bwt2_bytes; after the seed, "
-            f"[lanes, classes] by bin: {json.dumps(bins)}; {json.dumps(t)}")
+            f"{row_passes.tolist()}) and on bwt2_bytes; the seed's runs of "
+            f"equal first words, [lanes, runs] by bin: {json.dumps(runs)}; "
+            f"after the seed, [lanes, classes] by bin: {json.dumps(bins)}; "
+            f"{json.dumps(t)}")
     lib_ms = sort_library_ms(dev)
     log(f"bwt2: torch.sort(stable=True), (32, {WIDTH}) int64: "
         f"{lib_ms:.3f} ms; launches in this phase {bwt2.launches} "

@@ -8,15 +8,17 @@ its rotation order, so ranks at ``i + k`` are read from an ISA extended
 with position-coded end sentinels ``n - p - 2^30`` (``_extend``).
 
 The two suffix sorts, ``_seed16`` and ``_pass8``, run the hand-written
-kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor.  The seed is a
-stable LSD radix sort of the lanes < n carrying only the suffix array,
-its 8-bit digits read from the rows' bytes (16 passes), then class
-starts, ranks, unresolved counts and the new ISA by a scatter.  A pass
-is a segmented sort: key 0 is the ISA, so only the classes of two or
-more lanes are sorted, by keys 1 to 7 mapped below 2N, each in a bin
-by its size (``SEG_SMALL``, ``SEG_BLOCKS``; larger classes by the
-seed's radix passes over their lanes alone), and the ISA is updated in
-place.  The kernels' ISA is defined on the lanes < n only: the seed
+kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor.  The seed sorts the
+lanes < n by their first 4-byte word W0 in 4 stable 8-bit radix passes
+that carry the word with the lane; runs of equal W0 of two or more
+lanes are then sorted by W1..W3 (gathered once a lane), each in a bin
+by its size (``SEG_SMALL``, ``SEG_BLOCKS``), runs above the last bin by
+rounds of the same carried radix passes by the next word; the pads'
+key rule applies to the run of W0 = FF FF FF FF alone.  A pass is a
+segmented sort: key 0 is the ISA, so only the classes of two or more
+lanes are sorted, by keys 1 to 7 mapped below 2N, each in a bin by its
+size (larger classes by radix passes over their lanes alone), and the
+ISA is updated in place.  The kernels' ISA is defined on the lanes < n only: the seed
 writes 0 past them and a pass leaves them as they are; no reader looks
 there (``_extend``, ``_pass8``'s key 0 and the emits mask them, the
 primary index reads a lane < n).  For a CPU tensor they run the plain
@@ -181,6 +183,22 @@ def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
     return _ranks(sk, perm, nB)
 
 
+def _by_bins(sizes: torch.Tensor, last: str) -> dict:
+    """{"tied_lanes": .., bin name: [lanes, groups], ..} of group sizes by
+    the kernels' size bins, the groups above the last block bin under
+    ``last``."""
+    sizes = sizes[sizes >= 2]
+    edges = (2, SEG_SMALL + 1, *(c + 1 for c in SEG_BLOCKS), None)
+    names = (f"small_2_{SEG_SMALL}",
+             *(f"block_{lo}_{c}" for lo, c in zip(edges[1:], SEG_BLOCKS)),
+             f"{last}_{SEG_BLOCKS[-1] + 1}_up")
+    out = {"tied_lanes": int(sizes.sum())}
+    for name, lo, hi in zip(names, edges, edges[1:]):
+        inside = sizes[(sizes >= lo) & ((sizes < hi) if hi else True)]
+        out[name] = [int(inside.sum()), int(inside.numel())]
+    return out
+
+
 def class_bins(ISA: torch.Tensor, ns: torch.Tensor) -> dict:
     """The classes of equal ISA values among the lanes < n that a pass
     over ``ISA`` sorts, by the kernels' size bins, summed over the rows:
@@ -190,16 +208,27 @@ def class_bins(ISA: torch.Tensor, ns: torch.Tensor) -> dict:
     valid = _iota(B, N, ISA.device) < ns[:, None]
     row = torch.arange(B, device=ISA.device)[:, None] * N
     sizes = torch.bincount((row + ISA.long())[valid], minlength=B * N)
-    sizes = sizes[sizes >= 2]
-    edges = (2, SEG_SMALL + 1, *(c + 1 for c in SEG_BLOCKS), None)
-    names = (f"small_2_{SEG_SMALL}",
-             *(f"block_{lo}_{c}" for lo, c in zip(edges[1:], SEG_BLOCKS)),
-             f"radix_{SEG_BLOCKS[-1] + 1}_up")
-    out = {"tied_lanes": int(sizes.sum())}
-    for name, lo, hi in zip(names, edges, edges[1:]):
-        inside = sizes[(sizes >= lo) & ((sizes < hi) if hi else True)]
-        out[name] = [int(inside.sum()), int(inside.numel())]
-    return out
+    return _by_bins(sizes, "radix")
+
+
+def seed_run_bins(blocks: torch.Tensor, ns: torch.Tensor) -> dict:
+    """The runs of equal first words W0 (bytes p .. p + 3, 0 at or past
+    n) among the lanes < n that the seed's first round leaves, by the
+    kernels' size bins, summed over the rows (those above the last block
+    bin go to the seed's later rounds).  Plain PyTorch, on the blocks'
+    device."""
+    B, N = blocks.shape
+    idx = _iota(B, N, blocks.device)
+    nB = ns[:, None]
+    bp = torch.where(idx < nB, blocks.long(), 0)
+    ext = torch.cat([bp, torch.zeros((B, 3), dtype=torch.long,
+                                     device=blocks.device)], dim=1)
+    w0 = torch.zeros((B, N), dtype=torch.long, device=blocks.device)
+    for j in range(4):
+        w0 = (w0 << 8) | ext[:, j:j + N]
+    row = torch.arange(B, device=blocks.device)[:, None] << 32
+    _, sizes = torch.unique((row | w0)[idx < nB], return_counts=True)
+    return _by_bins(sizes, "rounds")
 
 
 def _lib():
@@ -218,9 +247,11 @@ def _lib():
 
 def _workspace(dev: torch.device, nbytes: int, nzeros: int):
     """The calling thread's kernel scratch on ``dev``: ``nbytes`` of
-    scratch (the seed's two suffix arrays, digit counts, carries and a
-    byte a lane, then the pass's S, F, compacted lanes, 32 bytes of keys
-    a lane and the class lists: 1.54 GB at (32, 901120)) and ``nzeros``
+    scratch (two suffix arrays, digit counts, carries and a byte a lane,
+    the pass's S, F, compacted lanes, 32 bytes of keys a lane and the
+    class lists, and the seed's large-run tables; the seed carves its
+    words and runs from the pass's parts: 1.54 GB at (32, 901120)) and
+    ``nzeros``
     int32 class counts (115 MB), which are 0 and which every pass leaves
     0.  Both are kept from call to call and only ever grown, so a call
     allocates nothing.  No call waits for its kernels: work queued on it on one
@@ -278,7 +309,9 @@ def _launched(name: str, err: int) -> None:
 def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
     """Initial ISA from the 16-byte suffix prefix (k = 16 afterwards):
     (ISA (B, N) int32, cnt (B,) int32).  The kernels of
-    ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA 0 at lanes >= n), the
+    ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA 0 at lanes >= n; they
+    run round 0's block bins on a second stream of the calling thread,
+    joined back into the current one before the call returns), the
     plain version for a CPU tensor."""
     if blocks.device.type == "cpu":
         return _seed16_plain(blocks, ns)

@@ -1,18 +1,18 @@
-"""The suffix-sort kernels of lbzip2_tpu_torch/csrc/bwt2_sort.cu, row by
-row in numpy, against the port's plain ``_seed16_plain`` /
-``_pass8_plain`` and JAX's ``_seed16`` / ``_pass8`` on the CPU.
+"""The digit passes of lbzip2_tpu_torch/csrc/bwt2_sort.cu, row by row
+in numpy, against the port's plain ``_pass8_plain`` and JAX's
+``_pass8`` on the CPU (the seed's model is
+tests/test_torch_bwt2_seed_runs.py).
 
-The model follows the kernels' algorithm step by step: stable LSD
-radix passes of 8-bit digits over the lanes < n, counted per (digit,
+The model follows the kernels' algorithm step by step: stable LSD radix
+passes of 8-bit digits over the lanes < n, counted per (digit,
 tile of 4096 lanes), scanned digit major, scattered in each tile warp
-span (512 lanes) after warp span; the seed's digits are the row's
-bytes p + 15 - d, the pass's are those of the mapped keys
-``N + ISA[p + off_j]`` or ``N - 1 - p`` (off_j = min(j k, N)), three a
-key; then class starts, the max-scan of start slots over tiles of 256
-lanes with carries, the unresolved count, the seed's pad-key rule and
-the scatter ISA[SA[t]] = rank.  The kernels define the ISA on lanes < n
-only, so valid lanes and the counts are compared, exactly.  Rows come
-from native.lyndon_prep at the 8192 bucket, B = 8, as in
+span (512 lanes) after warp span; the digits are those of the mapped
+keys ``N + ISA[p + off_j]`` or ``N - 1 - p`` (off_j = min(j k, N)),
+three a key; then class starts, the max-scan of start slots over tiles
+of 256 lanes with carries, the unresolved count and the scatter
+ISA[SA[t]] = rank.  The kernels define the ISA on lanes < n only, so
+valid lanes and the counts are compared, exactly.  Rows come from
+native.lyndon_prep at the 8192 bucket, B = 8, as in
 tests/test_torch_bwt2.py.
 """
 
@@ -33,7 +33,7 @@ BITS, RADIX = 8, 256          # the kernels' digit
 TILE, SPAN = 4096, 512        # a sort tile, a warp's span of it
 WARPS = TILE // SPAN
 RANK_TILE = 256               # lanes a block of the rank kernels
-SEED_BYTES, KEYS, KEY_DIGITS = 16, 8, 3
+KEYS, KEY_DIGITS = 8, 3
 INF, BIG = 2 ** 31 - 1, 1 << 30
 
 
@@ -64,12 +64,6 @@ def radix_pass(sa: np.ndarray, digits: np.ndarray) -> np.ndarray:
     return out
 
 
-def seed_keys(row: np.ndarray, n: int, p: np.ndarray) -> np.ndarray:
-    """(len(p), 16) bytes p .. p + 15 of the row, 0 at and past n."""
-    q = p[:, None] + np.arange(SEED_BYTES)
-    return np.where(q < n, row[np.minimum(q, N - 1)], 0).astype(np.int64)
-
-
 def offsets(k: int) -> list:
     return [min(j * k, N) for j in range(KEYS)]
 
@@ -93,7 +87,7 @@ def sort_lanes(n: int, digit_columns) -> np.ndarray:
     return sa
 
 
-def rank_step(sa, keys, n, seed):
+def rank_step(sa, keys, n):
     """(isa (N,), cnt) from the sorted lanes and their key tuples."""
     isa = np.zeros(N, np.int64)
     if n == 0:
@@ -112,20 +106,8 @@ def rank_step(sa, keys, n, seed):
     end = np.ones(n, bool)
     end[:-1] = start[1:]
     open_ = ~(start & end)
-    if seed:  # the pads' own key: FF FF FF FF then twelve 0 bytes
-        ff = (keys[:, :4] == 255).all(1)
-        rest = keys[:, 4:].any(1)
-        rank = rank + np.where(ff & rest, N - n, 0)
-        open_ |= ff & ~rest & (n < N)
     isa[sa] = rank
     return isa, int(open_.sum())
-
-
-def model_seed16(row: np.ndarray, n: int):
-    cols = [lambda sa, d=d: seed_keys(row, n, sa)[:, SEED_BYTES - 1 - d]
-            for d in range(SEED_BYTES)]
-    sa = sort_lanes(n, cols)
-    return rank_step(sa, seed_keys(row, n, sa), n, seed=True)
 
 
 def model_pass8(isa: np.ndarray, k: int, n: int):
@@ -133,7 +115,7 @@ def model_pass8(isa: np.ndarray, k: int, n: int):
                                   (BITS * s)) & (RADIX - 1)
             for j in reversed(range(KEYS)) for s in range(KEY_DIGITS)]
     sa = sort_lanes(n, cols)
-    return rank_step(sa, pass_keys(isa, n, sa, k), n, seed=False)
+    return rank_step(sa, pass_keys(isa, n, sa, k), n)
 
 
 # -- inputs -----------------------------------------------------------------
@@ -153,22 +135,6 @@ def _blocks(kind, seed):
             vals = rng.integers(0, 256, n // 3 + 1, np.uint8)
             b = np.repeat(vals, rng.integers(1, 9, vals.size))[:n].copy()
             b[-1] ^= 0x55  # keep primitive
-            out.append(b)
-        return out
-    if kind == "pad_key":
-        # FF FF FF FF then a nonzero byte (sorts after the pads in JAX)
-        # or at the row's end (ties with them), with and without pads;
-        # three 0 bytes first keep the row its own least rotation
-        out = []
-        for n, at in ((5000, 100), (4096, "end"), (8192, "end"),
-                      (8192, 4000), (300, "end"), (2, None), (1, None),
-                      (0, None)):
-            b = rng.integers(1, 256, n, np.uint8)
-            b[:3] = 0
-            if at == "end":
-                b[-4:] = 0xFF
-            elif at is not None:
-                b[at:at + 4] = 0xFF
             out.append(b)
         return out
     out = []  # deep repeats: long periodic stretches broken near the end
@@ -205,31 +171,6 @@ def _assert_rows(want_isa, want_cnt, got_isa, got_cnt, ns, who):
 
 
 KINDS = ["random", "small_alpha", "runs", "deep_repeats"]
-
-
-@pytest.mark.parametrize("kind", KINDS + ["pad_key"])
-def test_seed16_model(kind):
-    """The byte-digit passes, ranks, counts and scatter against the plain
-    version and JAX; "pad_key" rows hold the pads' own 16-byte key and
-    keys above it."""
-    rot, ns = _batch(_blocks(kind, 1))
-    model = [model_seed16(rot[r], int(ns[r])) for r in range(B)]
-    m_isa = np.stack([m[0] for m in model])
-    m_cnt = np.array([m[1] for m in model], np.int32)
-    p_isa, p_cnt = bwt2._seed16_plain(to_torch(rot), to_torch(ns))
-    j_isa, j_cnt = jbwt2.seed16(jnp.asarray(rot), jnp.asarray(ns))
-    _assert_rows(to_numpy(p_isa), to_numpy(p_cnt), m_isa, m_cnt, ns,
-                 "model vs plain")
-    _assert_rows(np.asarray(j_isa), np.asarray(j_cnt), m_isa, m_cnt, ns,
-                 "model vs JAX")
-    if kind == "pad_key":  # both sides of the pads' key were hit
-        flat = [seed_keys(rot[r], int(ns[r]), np.arange(ns[r]))
-                for r in range(B) if ns[r]]
-        ff = np.concatenate([(f[:, :4] == 255).all(1) & f[:, 4:].any(1)
-                             for f in flat])
-        eq = np.concatenate([(f[:, :4] == 255).all(1) & ~f[:, 4:].any(1)
-                             for f in flat])
-        assert ff.any() and eq.any()
 
 
 # k = 16: the first pass; 5000: N < j k < 2N for j = 2 (the clamped
@@ -303,13 +244,16 @@ def test_radix_pass_is_a_stable_counting_sort():
 
 
 def test_model_resolve_loop_and_identity_pass():
-    """The model's loop to resolution (and one pass past it, which must
-    give back its input) equals JAX's resolved ISA on every valid lane."""
+    """The model's passes from JAX's seed to resolution (and one pass past
+    it, which must give back its input) equal JAX's resolved ISA on every
+    valid lane."""
     rot, ns = _batch(_blocks("deep_repeats", 5))
     want = np.asarray(jbwt2._resolve_loop(jnp.asarray(rot), jnp.asarray(ns)))
+    seed_isa, seed_cnt = jbwt2.seed16(jnp.asarray(rot), jnp.asarray(ns))
     for r in range(B):
         n = int(ns[r])
-        isa, cnt = model_seed16(rot[r], n)
+        isa = np.asarray(seed_isa[r]).astype(np.int64)
+        cnt = int(seed_cnt[r])
         k, passes = 16, 0
         while cnt:
             isa, cnt = model_pass8(isa, k, n)
