@@ -16,8 +16,9 @@ times, with
 and the peak of device memory over one text batch through
 chain_payloads, as one JSON line.  The third runs no phase either:
 with the package of the checkout at DIR it prints the device time per
-op of one text batch (op_table, which --measure adds to phase 13) and
-takes the stream runs that --measure adds to phase 6 (stream_runs):
+op of one text batch (op_table, which --measure adds to phase 13), the
+device's busy time over one device-only compress of the phase-6 stream
+and takes the stream runs that --measure adds to phase 6 (stream_runs):
 the phase-6 stream through compress
 in the shipped default (host stealing and steal-back on: the device's
 share, stale rows, every batch's claim->deliver time) and device-only,
@@ -55,9 +56,10 @@ Phases (any failure exits non-zero before the last line is printed):
              read: every chain batch must have gone through the EM
              kernels (one loop a batch, cluster_factor - 1 M-step
              launches each) and none through the plain loop, its E-step
-             or a stand-alone M-step, and every batch must have shipped
-             exactly the rows it held.  The output must equal the repo's
-             host C pipeline, run out of process as
+             or a stand-alone M-step, through one RLE2 and one packing
+             launch and none of their plain versions, and every batch
+             must have shipped exactly the rows it held.  The output
+             must equal the repo's host C pipeline, run out of process as
              `bin/lbzip2 -9 -c`, byte for byte and
              round-trip through bz2; every device-eligible block must
              have gone through the device.  Then the same call once
@@ -196,6 +198,28 @@ Phases (any failure exits non-zero before the last line is printed):
              library_ms.  (It runs after phase 15.)  Phases 6, 7, 16, 17
              and 18 assert that their paths launched both, and phase 6
              that every batch's trace holds its BWT passes.
+ 20. entropy: the RLE2 kernel with its flat histogram (csrc/rle2.cu
+             behind ops/rle2.py::rle2_hist_rows) and the group-packing
+             kernel (csrc/pack_groups.cu behind ops/chain.py::
+             _pack_groups) against their plain versions, tolerance 0 on
+             every output (values, nm, histogram; words, total bits): the
+             text batch's MTF ranks at (32, 901120), the MTF ranks of the
+             BWT of phase 19's random, 16-value and runs blocks, deep
+             repeats and (8, 8192) bucket (n = 0, 1, 2), and synthetic
+             rows (runs of 2^j - 2 to 2^j across tile edges, a run over
+             three tiles, runs that touch n, garbage past n, n = 0 and
+             1, a row of one run of 901120, a row whose EOB is its last
+             lane, ninuse 1 and 256); the packing on the arguments
+             chain_payloads gives it on each of those batches and on
+             synthetic rows (start bit 31, codes of 20 bits, a dummy
+             symbol with a length, selectors out of range, ngroups 0 and
+             below G, rows past W); both wrappers once on the text batch
+             under torch.cuda.set_sync_debug_mode("error") (no host
+             read); CUDA-event times of both and of their plain versions
+             on the text batch in turns, and each kernel's device
+             time.  (It runs after phase 19.)  Phases 6, 16 and 17
+             assert that their paths launched both and called neither
+             plain version, phase 18 that each process launched both.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -223,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import bz2
+import contextlib
 import hashlib
 import json
 import os
@@ -587,13 +612,13 @@ def device_us(fn, reps: int = 5) -> dict:
 
 OPS = (("bwt2", ("_seed16", "_pass8", "_pass_in_place", "_emit_bytes")),
        ("chain", ("_compact_syms", "mtf_ranks_rows", "_rle2_batch",
-                  "_flat_hist", "em_chain_rows", "_pack_groups",
-                  "_flatten_words")))
+                  "_flat_hist", "rle2_hist_rows", "em_chain_rows",
+                  "_pack_groups", "_flatten_words")))
 
 
-def op_table(text: bytes, batch, dev) -> None:
-    """--measure: device time of each op of the main path for the 32-row
-    text batch, through bwt2_bytes and chain_payloads.  Each op runs
+def op_table(text: bytes, batch, dev, nrows: int = ROWS) -> None:
+    """--measure: device time of each op of the main path for the text
+    batch (its first nrows rows), through bwt2_bytes and chain_payloads.  Each op runs
     under a torch.profiler of its own between two synchronizes (so the
     batch's wall is not the pool's); its time is the union of its device
     intervals.  What the table leaves out is what runs between the ops:
@@ -622,13 +647,14 @@ def op_table(text: bytes, batch, dev) -> None:
         return call
 
     tb = np.frombuffer(text, np.uint8)
-    blocks = [tb[(r * BLOCK) % tb.size:][:BLOCK] for r in range(ROWS)]
+    blocks = [tb[(r * BLOCK) % tb.size:][:BLOCK] for r in range(nrows)]
     rows, ns, ms = lyndon_rows(blocks, WIDTH)
     _, _, cmaps, primary = batch
+    cmaps, primary = cmaps[:nrows], primary[:nrows]
     mods = {m: importlib.import_module(f"lbzip2_tpu_torch.ops.{m}")
             for m, _ in OPS}
     kept = {(m, n): getattr(mods[m], n) for m, names in OPS for n in names
-            if hasattr(mods[m], n)}  # a parent tree has no _pass_in_place
+            if hasattr(mods[m], n)}  # names a tree lacks are skipped
     for (m, n), fn in kept.items():
         setattr(mods[m], n, timed(f"{m}.{n}", fn))
     try:
@@ -636,12 +662,12 @@ def op_table(text: bytes, batch, dev) -> None:
                                            for a in (rows, ns, ms)))
         mods["chain"].chain_payloads(
             bwt, ns, cmaps, primary.cpu().numpy().astype(np.int32),
-            np.zeros(ROWS, np.uint32))
+            np.zeros(nrows, np.uint32))
     finally:
         for (m, n), fn in kept.items():
             setattr(mods[m], n, fn)
     total = sum(r["device_ms"] for r in table.values())
-    log(f"device time per op, one (32, {WIDTH}) text batch through "
+    log(f"device time per op, one ({nrows}, {WIDTH}) text batch through "
         f"bwt2_bytes and chain_payloads, {total:.3f} ms in all:")
     for name, row in sorted(table.items(),
                             key=lambda kv: -kv[1]["device_ms"]):
@@ -1602,7 +1628,7 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
     the plain E-steps with the M-step kernel between them."""
     from lbzip2_tpu_torch import _build
     from lbzip2_tpu_torch.ops import (bwt2, chain, huffdec, huffenc, ibwt,
-                                      mtf_pallas, sort_sweeps)
+                                      mtf_pallas, rle2, sort_sweeps)
 
     data, text = make_data(seed, text_blocks=ROWS)
     mtf_cases, batch = mtf_timed_cases(text, dev)
@@ -1644,6 +1670,27 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
             lambda v, ln: bitpack.pack_bits_device(v, ln, v.numel()),
             lambda v, ln: bitpack.pack_bits_plain(v, ln, v.numel()),
             (values, nbits))
+    # the RLE2 with its histogram and the group packing of the text batch;
+    # a checkout from before their kernels times the plain versions its
+    # main path ran
+    syms, ns_d = mtf_cases["real_text_rows"]
+    ranks = (mtf_pallas.mtf_ranks_rows(syms, ns_d), ns_d,
+             torch.from_numpy(cmaps).to(dev).int().sum(1, dtype=torch.int32))
+
+    def rle2_then_hist(r, n, u):
+        mtfv, nm = rle2._rle2_batch(r, n, u)
+        return mtfv, nm, chain._flat_hist(mtfv, nm, u)
+
+    if hasattr(rle2, "rle2_hist_rows"):
+        calls["rle2_hist_text_32x901120"] = (
+            rle2.rle2_hist_rows, rle2.rle2_hist_plain, ranks)
+    else:
+        calls["rle2_hist_text_32x901120"] = (rle2_then_hist, rle2_then_hist,
+                                             ranks)
+    calls["pack_groups_text_32x901120"] = (
+        chain._pack_groups, getattr(chain, "_pack_groups_plain",
+                                    chain._pack_groups),
+        pack_args(bwt, ns, cmaps, primary.cpu().numpy())[0])
     # the suffix sorts on the text rows; a checkout from before their
     # kernels times its plain versions, which its main path ran
     rows_h, ns_h, _ = text_rows(text)
@@ -1761,11 +1808,12 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
     four times, the first not kept (the process's first call may be
     cold), then once device-only (stealing off, as the rest of the smoke
     runs), each equal to ``ref`` (bin/lbzip2 -9); then
-    decompress_parallel twice and decompress_stream once with both
+    decompress_parallel three times and decompress_stream once with both
     device stages on, and the host C path, each equal to the data; per
     run its MB/s, the engines' block counts, every batch's times and the
     decoder's stats (its stage seconds); each compress run's peak of
-    device memory."""
+    device memory; each decompress_parallel run's process_state before
+    it and the segments it allocated."""
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.ops import huffdec, ibwt
     from lbzip2_tpu_torch.parallel import decode
@@ -1773,7 +1821,7 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
     res = {"package": os.path.dirname(encoder.__file__), "card": card_line(),
            "bytes": len(data), "compress": [], "decompress": []}
     batch_keys = ("rows", "claimed_t", "claim_s", "prep_s", "dispatch_s",
-                  "ready_s", "done_t", "bwt2_passes")
+                  "ready_s", "done_t", "bwt2_passes", "chain_stages")
     for steal, turns in ((True, 4), (False, 1)):
         encoder._HOST_STEAL = encoder._STEALBACK = steal
         for turn in range(turns):
@@ -1793,19 +1841,32 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
                                       "stale_rows")},
                 "batches": [{k: t.get(k) for k in batch_keys}
                             for t in st["batch_trace"]]})
-    for huff_ibwt, runs in ((True, 2), (False, 1)):
+    def process_state():
+        """What a decode run may find left behind in the process: the
+        caching allocator's reserved bytes and segments (cudaMalloc calls
+        so far), and the live Python threads."""
+        st = torch.cuda.memory_stats(dev)
+        return {"reserved_bytes": st.get("reserved_bytes.all.current", 0),
+                "segments": st.get("segment.all.allocated", 0),
+                "threads": threading.active_count()}
+
+    for huff_ibwt, runs in ((True, 3), (False, 1)):
         decode.DEVICE_HUFF = decode.DEVICE_IBWT = huff_ibwt
         for _ in range(runs):
             huffdec.launches = ibwt.launches = 0
+            before = process_state()
             t0 = time.time()
             assert decode.decompress_parallel(out, device=dev) == data
             dt = time.time() - t0
+            after = process_state()
             res["decompress"].append({
                 "entry": "decompress_parallel",
                 "stages": "device" if huff_ibwt else "host_c", "s": dt,
                 "mbps": len(data) / dt / 1e6,
                 "huffdec_launches": huffdec.launches,
-                "ibwt_launches": ibwt.launches, **decode.last_stats})
+                "ibwt_launches": ibwt.launches, "before": before,
+                "new_segments": after["segments"] - before["segments"],
+                **decode.last_stats})
         if not huff_ibwt:
             continue
         parts, view, cursor = [], memoryview(out), [0]
@@ -1826,17 +1887,23 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
 
 
 def stream_tree(seed: int, dev) -> int:
-    """--measure --tree DIR: the per-op table of one text batch
-    (op_table), then stream_runs on the phase-6 stream as one JSON line,
-    both with the package of DIR."""
+    """--measure --tree DIR: the per-op table of one text batch at 32,
+    16 and 8 rows (op_table), the device's busy time over one device-only compress of
+    the phase-6 stream under torch.profiler, then stream_runs on that
+    stream as one JSON line, all with the package of DIR."""
     from lbzip2_tpu_torch.codec import encoder
 
     data, text = make_data(seed)
     ref = host_reference(data)
     warm = encoder.warm_device(device=dev)
     _, batch = mtf_timed_cases(text, dev)
-    op_table(text, batch, dev)
+    for nrows in (ROWS, 16, 8):  # the engine's three claim sizes
+        op_table(text, batch, dev, nrows)
     del batch
+    encoder._HOST_STEAL = encoder._STEALBACK = False
+    encoder.compress(data, 9, device=dev)  # warm
+    assert idle_share("compress, chain mode, device-only", lambda:
+                      encoder.compress(data, 9, device=dev)) == ref
     print(json.dumps({"warm_device_s": warm, **stream_runs(data, ref, dev)}),
           flush=True)
     return 0
@@ -1889,25 +1956,12 @@ def pack_groups_fields(batch, dev):
     call's words and total bits.  Taken from chain_payloads on row 0 of
     the BWT batch (bwt, ns, cmaps, primary)."""
     from lbzip2_tpu_torch.core.constants import GROUP_SIZE
-    from lbzip2_tpu_torch.ops import chain
+    from lbzip2_tpu_torch.interop import M32
 
     bwt, ns, cmaps, primary = batch
-    got = {}
-    real = chain._pack_groups
-
-    def spy(*a):
-        got["args"], got["out"] = a, real(*a)
-        return got["out"]
-
-    chain._pack_groups = spy
-    try:
-        chain.chain_payloads(bwt[:1].contiguous(), ns[:1], cmaps[:1],
-                             primary[:1].cpu().numpy().astype(np.int32),
-                             np.zeros(1, np.uint32))
-    finally:
-        chain._pack_groups = real
-    mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, _ = got["args"]
-    words, total = got["out"]
+    args, (words, total) = pack_args(bwt[:1].contiguous(), ns[:1],
+                                     cmaps[:1], primary[:1].cpu().numpy())
+    mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, _ = args
     NP = mtfv.shape[1]
     G = -(-NP // GROUP_SIZE)
     lanes = torch.arange(G * GROUP_SIZE, device=dev)
@@ -1920,7 +1974,8 @@ def pack_groups_fields(batch, dev):
                         codes[0][tree, groups].reshape(-1).long()])
     nbits = torch.cat([start_bit[:1].int(),
                        lens[0][tree, groups].reshape(-1).int()])
-    return values.contiguous(), nbits.contiguous(), words[0], int(total[0])
+    return (values.contiguous(), nbits.contiguous(),
+            words[0].long() & M32, int(total[0]))
 
 
 def bitpack_phase(batch, dev) -> dict:
@@ -2176,20 +2231,24 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
 def reset_counts() -> None:
     """Set the launch counts of the kernels the sharded and engine paths
     run to 0, just before a path runs (read_counts just after)."""
-    from lbzip2_tpu_torch.ops import bwt2, huffenc, ibwt, mtf_pallas
+    from lbzip2_tpu_torch.ops import (bwt2, chain, huffenc, ibwt,
+                                      mtf_pallas, rle2)
 
     mtf_pallas.launches = huffenc.em_launches = huffenc.launches = 0
     ibwt.launches = bwt2.launches = bwt2.pass_launches = 0
+    rle2.launches = chain.pack_launches = 0
 
 
 def read_counts() -> dict:
-    from lbzip2_tpu_torch.ops import bwt2, huffenc, ibwt, mtf_pallas
+    from lbzip2_tpu_torch.ops import (bwt2, chain, huffenc, ibwt,
+                                      mtf_pallas, rle2)
 
     return {"mtf_ranks": mtf_pallas.launches, "em_chain":
             huffenc.em_launches, "code_lengths": huffenc.launches,
             "ibwt": ibwt.launches,
             "bwt2_seed16": bwt2.launches - bwt2.pass_launches,
-            "bwt2_pass8": bwt2.pass_launches}
+            "bwt2_pass8": bwt2.pass_launches, "rle2_hist": rle2.launches,
+            "pack_groups": chain.pack_launches}
 
 
 def sharded_phase(dev) -> dict:
@@ -2204,16 +2263,20 @@ def sharded_phase(dev) -> dict:
 
     count = torch.cuda.device_count()
     reset_counts()
+    plain: dict = {}
     t0 = time.time()
-    res = entry.dryrun_multichip(count, dev.type, WIDTH)
+    with plain_twins_counted(plain):
+        res = entry.dryrun_multichip(count, dev.type, WIDTH)
     wall = time.time() - t0
     counts = read_counts()
     log(f"sharded: dryrun_multichip({count}) over {count} card(s) at "
         f"{WIDTH}: {wall:.2f} s, {json.dumps(res)}; launches "
-        f"{json.dumps(counts)}")
+        f"{json.dumps(counts)}; plain versions {json.dumps(plain)}")
     assert counts["mtf_ranks"] and counts["em_chain"] and counts["ibwt"] \
-        and counts["bwt2_seed16"] and counts["bwt2_pass8"], \
-        f"the dry run missed a kernel of its path: {counts}"
+        and counts["bwt2_seed16"] and counts["bwt2_pass8"] and \
+        counts["rle2_hist"] and counts["pack_groups"] and \
+        not any(plain.values()), \
+        f"the dry run missed a kernel of its path: {counts}, {plain}"
     blocks, ns, ms, raws, cmaps, rle_rows = entry.dryrun_blocks(4, WIDTH)
     cmaps = np.stack([np.asarray(c, np.uint8) for c in cmaps])
     crcs = np.asarray([crc32.crc_of(r) for r in raws], np.uint32)
@@ -2257,14 +2320,22 @@ def sharded_phase(dev) -> dict:
     steps = ("bwt2_full", "bwt2_tokens", "chain_payloads", "ibwt")
     walls = {"sharded_2x_cuda0": [], "unsharded_cuda0": []}
     outs = {}
-    for name in ("sharded_2x_cuda0", "unsharded_cuda0", "unsharded_cuda0",
-                 "sharded_2x_cuda0"):
+    for i, name in enumerate(("sharded_2x_cuda0", "unsharded_cuda0",
+                              "unsharded_cuda0", "sharded_2x_cuda0")):
         fn = sharded if name.startswith("sharded") else unsharded
         torch.cuda.synchronize()
+        reset_counts()
         marks = [time.time()]
-        outs[name] = fn(marks)
+        with plain_twins_counted(plain):
+            outs[name] = fn(marks)
         walls[name].append({"s": marks[-1] - marks[0], **{
             k: b - a for k, a, b in zip(steps, marks, marks[1:])}})
+        if i == 0:  # the sharded chain ran the entropy kernels
+            shard_counts = read_counts()
+            assert shard_counts["rle2_hist"] and \
+                shard_counts["pack_groups"] and \
+                not any(plain.values()), \
+                f"the sharded chain missed a kernel: {shard_counts}, {plain}"
     (rows, prim, tok, pay, dec), (rows1, prim1, tok1, pay1, dec1) = \
         outs["sharded_2x_cuda0"], outs["unsharded_cuda0"]
     assert np.array_equal(prim, prim1) and np.array_equal(tok[3], prim1)
@@ -2281,8 +2352,10 @@ def sharded_phase(dev) -> dict:
         assert np.array_equal(dec[b, :n], dec1[b, :n]) and \
             np.array_equal(dec[b, :n], rle_rows[b]), f"decode row {b}"
     log(f"sharded over [cuda:0, cuda:0], 4 blocks at {WIDTH}: equal to the "
-        f"unsharded port and native.encode_payload; walls (s, in turns) "
+        f"unsharded port and native.encode_payload; launches of the first "
+        f"sharded turn {json.dumps(shard_counts)}; walls (s, in turns) "
         f"{json.dumps(walls)}")
+    assert not any(plain.values()), f"plain versions on the card: {plain}"
     return {"cards": count, "dryrun_s": wall, "dryrun": res,
             "launches": counts, "walls": walls}
 
@@ -2294,8 +2367,10 @@ def engine_cards_phase(data: bytes, ref: bytes, dev) -> dict:
 
     count = torch.cuda.device_count()
     reset_counts()
+    plain: dict = {}
     t0 = time.time()
-    out = encoder.compress(data, 9, device=dev.type)  # "cuda": every card
+    with plain_twins_counted(plain):
+        out = encoder.compress(data, 9, device=dev.type)  # every card
     dt = time.time() - t0
     counts = read_counts()
     devs = [t["dev"] for t in encoder.last_stats["batch_trace"]]
@@ -2305,14 +2380,16 @@ def engine_cards_phase(data: bytes, ref: bytes, dev) -> dict:
     assert out == ref, "compress over every card differs from bin/lbzip2"
     assert set(devs) == set(range(count)), f"cards driven: {set(devs)}"
     assert counts["mtf_ranks"] and counts["em_chain"] and \
-        counts["bwt2_seed16"] and counts["bwt2_pass8"], counts
+        counts["bwt2_seed16"] and counts["bwt2_pass8"] and \
+        counts["rle2_hist"] and counts["pack_groups"] and \
+        not any(plain.values()), (counts, plain)
     return {"cards": count, "s": dt, "batch_devs": devs, "launches": counts}
 
 
 MULTIHOST_WORKER = r"""
 import json, sys
 import torch
-from lbzip2_tpu_torch.ops import bwt2, huffenc, mtf_pallas
+from lbzip2_tpu_torch.ops import bwt2, chain, huffenc, mtf_pallas, rle2
 from lbzip2_tpu_torch.parallel import multihost as MH
 addr, pid, nproc, src, dst, dev = sys.argv[1:7]
 pid, nproc = int(pid), int(nproc)
@@ -2320,13 +2397,15 @@ MH.initialize_distributed(addr, nproc, pid)
 data = open(src, "rb").read()
 a, b = MH.shard_bounds(len(data), 9, nproc, pid)
 mtf_pallas.launches = huffenc.em_launches = bwt2.launches = 0
+rle2.launches = chain.pack_launches = 0
 out = MH.compress_multihost(data[a:b], 9, engine="hybrid", device=dev)
 if pid == 0:
     open(dst, "wb").write(out)
 print(json.dumps({"pid": pid, "shard": [a, b], "mtf_ranks":
                   mtf_pallas.launches, "em_chain": huffenc.em_launches,
-                  "bwt2": bwt2.launches, "stream": out is not None}),
-      flush=True)
+                  "bwt2": bwt2.launches, "rle2_hist": rle2.launches,
+                  "pack_groups": chain.pack_launches,
+                  "stream": out is not None}), flush=True)
 torch.distributed.destroy_process_group()
 """
 
@@ -2386,10 +2465,252 @@ def multihost_phase(data: bytes, dev) -> dict:
         f"{json.dumps(recs)}")
     assert stream == single, "the two-process stream differs from one host"
     assert bz2.decompress(stream) == prefix
-    assert all(r["mtf_ranks"] and r["em_chain"] and r["bwt2"]
-               for r in recs), \
+    assert all(r["mtf_ranks"] and r["em_chain"] and r["bwt2"] and
+               r["rle2_hist"] and r["pack_groups"] for r in recs), \
         f"a process's shard missed the card's kernels: {recs}"
     return {"s": wall, "processes": recs}
+
+
+def pack_args(bwt, ns, cmaps, idxs) -> tuple:
+    """The arguments chain_payloads gives _pack_groups on a BWT batch
+    (bwt on the card; ns, cmaps, idxs on the host), and that call's
+    output."""
+    from lbzip2_tpu_torch.ops import chain
+
+    got = {}
+    real = chain._pack_groups
+
+    def spy(*a):
+        got["args"], got["out"] = a, real(*a)
+        return got["out"]
+
+    chain._pack_groups = spy
+    try:
+        chain.chain_payloads(bwt, ns, cmaps, np.asarray(idxs, np.int32),
+                             np.zeros(len(ns), np.uint32))
+    finally:
+        chain._pack_groups = real
+    return got["args"], got["out"]
+
+
+@contextlib.contextmanager
+def plain_twins_counted(counts: dict):
+    """Count the calls of the plain versions of the chain's kernels while
+    the block runs: the EM loop, its E-step and stand-alone M-step, the
+    RLE2, its flat histogram and the group packing.  A path on the card
+    makes none."""
+    from lbzip2_tpu_torch.ops import chain, huffenc, rle2
+
+    saved = []
+    for mod, name in ((huffenc, "_em_chain"), (chain, "_em_estep_hist"),
+                      (huffenc, "make_code_lengths_rows"),
+                      (rle2, "_rle2_plain"), (rle2, "_flat_hist"),
+                      (chain, "_pack_groups_plain")):
+        fn = getattr(mod, name)
+        counts.setdefault(name, 0)
+
+        def call(*a, _name=name, _fn=fn, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(mod, name, call)
+        saved.append((mod, name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def entropy_edge_rows():
+    """Synthetic RLE2 rows for each place a run meets a tile edge, as host
+    (ranks, ns, ninuse): (8, 65536) rows and (4, 901120) full-width ones."""
+    rng = np.random.default_rng(20)
+    N = 65536
+    r = rng.integers(1, 256, (8, N)).astype(np.int32)
+    p = 3
+    for j in range(1, 17):  # runs of 2^j - 2, 2^j - 1 and 2^j, one after
+        for k in (2 ** j - 2, 2 ** j - 1, 2 ** j):  # another
+            r[1, p:p + k] = 0
+            p += k + 1
+    r[2, 4000:4000 + 3 * 4096 + 5] = 0  # a run over three tiles
+    r[3, 30000:] = 0  # a run that touches n = 50000
+    r[4, 12345:] = rng.integers(INT32_MIN, INT32_MAX, N - 12345)  # past n
+    r[4, :12345] = np.where(rng.random(12345) < 0.6, 0, r[4, :12345])
+    r[5] = rng.integers(INT32_MIN, INT32_MAX, N)  # n = 0: nothing read
+    r[6, 0] = 0  # n = 1, one zero
+    r[0] = 0  # one run of N
+    # row 7: n = 4096, every rank nonzero: the EOB at lane 4096, past the
+    # first tile
+    ns = np.array([N, N, N, 50000, 12345, 0, 1, 4096], np.int32)
+    nu = np.array([1, 255, 200, 256, 90, 3, 1, 256], np.int32)
+    F = WIDTH
+    w = np.zeros((4, F), np.int32)
+    w[2] = rng.integers(1, 256, F)
+    w[3] = np.where(rng.random(F) < 0.9, 0, rng.integers(1, 256, F))
+    return {"edges_8x65536": (r, ns, nu),
+            "full_width_4x901120": (w, np.array([F, F - 1, F, F], np.int32),
+                                    np.array([1, 256, 256, 40], np.int32))}
+
+
+def pack_edge_args(dev) -> dict:
+    """Synthetic group-packing inputs (host arrays made into tensors on
+    the card): start bit 31, codes of 20 bits, a dummy symbol with a
+    length, ngroups 0 and below G, rows past W."""
+    rng = np.random.default_rng(21)
+    B, NP, W = 4, 100_001, 40_000
+    nm = np.array([NP, 37, 60_000, NP], np.int32)
+    ninuse = np.array([256, 3, 120, 255], np.int32)
+    mtfv = np.zeros((B, NP), np.int32)
+    for b in range(B):
+        mtfv[b, :nm[b] - 1] = rng.integers(0, ninuse[b] + 1, nm[b] - 1)
+        mtfv[b, nm[b] - 1] = ninuse[b] + 1
+    G = -(-NP // 50)
+    lens = rng.integers(1, 21, (B, 6, 259)).astype(np.int32)
+    lens[0] = 20  # every code 20 bits: row 0 runs past W
+    for b in range(B):
+        lens[b, :, ninuse[b] + 3:] = 0  # the dummy symbol keeps a length
+    codes = rng.integers(0, 1 << 20, lens.shape) & ((1 << lens) - 1)
+    ngroups = (nm + 49) // 50
+    ngroups[1], ngroups[3] = 0, G // 3
+    args = (mtfv, nm, ninuse, ngroups.astype(np.int32),
+            rng.integers(-1, 8, (B, G)).astype(np.int32),  # clamped 0..5
+            codes.astype(np.int64), lens,
+            np.array([31, 0, 17, 31], np.int32))
+    return {"edges_4x100001": (*(torch.from_numpy(a).to(dev) for a in args),
+                               W)}
+
+
+def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
+    """20. The RLE2 kernel (csrc/rle2.cu behind ops/rle2.py::
+    rle2_hist_rows) and the group-packing kernel (csrc/pack_groups.cu
+    behind ops/chain.py::_pack_groups) against their plain versions,
+    tolerance 0 on every output: the text batch's MTF ranks at
+    (32, 901120), the MTF ranks of the BWT of phase 19's random,
+    16-value and runs blocks, deep repeats and (8, 8192) bucket (n = 0,
+    1, 2), synthetic edge rows; the packing on the arguments
+    chain_payloads gives it on each of those batches and on synthetic
+    ones.  CUDA-event times of each kernel and its plain version in
+    turns, and each kernel's device time.  Returns the two records."""
+    from lbzip2_tpu_torch.interop import M32
+    from lbzip2_tpu_torch.ops import bwt2, chain, rle2
+    from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def ranks_of(bwt, ns, cmaps):
+        syms = chain._compact_syms(bwt, cmaps).contiguous()
+        return (mtf_ranks_rows(syms, ns), ns,
+                cmaps.int().sum(1, dtype=torch.int32))
+
+    bwt, ns_h, cmaps_h, primary = batch
+    rle_cases = {"text_32x901120": ranks_of(bwt, up(ns_h), up(cmaps_h))}
+    pack_cases = {"text_32x901120": pack_args(
+        bwt, ns_h, cmaps_h, primary.cpu().numpy())[0]}
+    for name, host in bwt2_cases(data, text).items():
+        if name == "text_32x901120":
+            continue
+        rows, ns, ms = host[:3]
+        kept = np.nonzero(ns > 0)[0]  # the emit reads byte n - 1
+        rows_k = bwt2.bwt2_bytes(up(rows[kept]), up(ns[kept]),
+                                 up(ms[kept]))
+        cm = np.zeros((len(ns), 256), np.uint8)
+        for r in range(len(ns)):
+            cm[r, np.unique(rows[r, :ns[r]])] = 1
+        full = torch.zeros(rows.shape, dtype=torch.uint8, device=dev)
+        full[up(kept)] = rows_k[0]
+        rle_cases[name] = ranks_of(full, up(ns), up(cm))
+        pack_cases[name] = pack_args(rows_k[0], ns[kept], cm[kept],
+                                     rows_k[1].cpu().numpy())[0]
+    for name, host in entropy_edge_rows().items():
+        rle_cases[name] = tuple(up(a) for a in host)
+    pack_cases.update(pack_edge_args(dev))
+
+    errs = {"rle2": 0, "pack": 0}
+    for name, a in rle_cases.items():
+        got = rle2.rle2_hist_rows(*a)
+        want = rle2.rle2_hist_plain(*a)
+        torch.cuda.synchronize()
+        e = max_err_of(got, want)
+        errs["rle2"] = max(errs["rle2"], e)
+        log(f"rle2 kernel vs plain [{name}, {tuple(a[0].shape)}]: nm "
+            f"{got[1].min().item()}..{got[1].max().item()}, max_abs_err {e}")
+        assert e == 0, f"rle2 kernel disagrees with plain on {name}"
+    for name, a in pack_cases.items():
+        got = chain._pack_groups(*a)
+        want = chain._pack_groups_plain(*a)
+        torch.cuda.synchronize()
+        e = max_err_of(got, want)
+        errs["pack"] = max(errs["pack"], e)
+        past = int((want[1] > 32 * a[-1]).sum())
+        log(f"pack_groups kernel vs plain [{name}, {tuple(a[0].shape)}, "
+            f"W {a[-1]}]: {past} rows past W, total bits "
+            f"{want[1].min().item()}..{want[1].max().item()}, "
+            f"max_abs_err {e}")
+        assert e == 0, f"pack_groups kernel disagrees with plain on {name}"
+
+    # the text batch: neither wrapper waits for the card (no host read)
+    ra, pa = rle_cases["text_32x901120"], pack_cases["text_32x901120"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rle2.rle2_hist_rows(*ra)
+        chain._pack_groups(*pa)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # in turns: plain, kernel, kernel, plain
+    turns = {"rle2": [], "rle2_plain": [], "pack": [], "pack_plain": []}
+    for kernel in (False, True, True, False):
+        if kernel:
+            turns["rle2"].append(cuda_ms(lambda: rle2.rle2_hist_rows(*ra),
+                                         20))
+            turns["pack"].append(cuda_ms(lambda: chain._pack_groups(*pa),
+                                         20))
+        else:
+            turns["rle2_plain"].append(cuda_ms(
+                lambda: rle2.rle2_hist_plain(*ra), 3))
+            turns["pack_plain"].append(cuda_ms(
+                lambda: chain._pack_groups_plain(*pa), 3))
+    us = {"rle2": device_us(lambda: rle2.rle2_hist_rows(*ra)),
+          "pack": device_us(lambda: chain._pack_groups(*pa))}
+    log(f"entropy kernels, (32, {WIDTH}) text batch, ms in turns: "
+        f"{json.dumps(turns)}; device us {json.dumps(us)}")
+
+    B, N = ra[0].shape
+    mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W = pa
+    # the ranks below n, ns and ninuse in; values, nm and the histogram
+    # out; a lane below n takes at least one operation
+    lanes = int(ra[1].clamp(0, N).sum())
+    rle_bytes = 4 * (lanes + 2 * B + B * (N + 1) + B + B * rle2.WIDTH)
+    # the symbols below nm of the valid groups, their selectors, the row
+    # scalars and the tables in; words and totals out; a symbol of a
+    # valid group takes at least one operation
+    ng = ngroups.clamp(0, sel.shape[1]).long()
+    read = int(torch.minimum(50 * ng, nm.long().clamp(0, mtfv.shape[1]))
+               .sum())
+    pack_bytes = (4 * (read + int(ng.sum()) + 4 * B + lens.numel()) +
+                  8 * codes.numel() + 4 * B * W + 8 * B)
+    symbols = 50 * int(ng.sum())
+    log(f"entropy kernels' bytes: rle2 {rle_bytes} ({lanes} lanes below "
+        f"n), pack_groups {pack_bytes} ({read} symbols read, "
+        f"{int(ng.sum())} groups, W {W})")
+
+    def mean(x):
+        return sum(x) / len(x)
+
+    return [{"name": "rle2_hist", "route": "cuda",
+             "source": "lbzip2_tpu_torch/csrc/rle2.cu",
+             "replaces": "lbzip2_tpu/ops/rle2.py:25", "launches": 0,
+             "max_abs_err": errs["rle2"], "ms": mean(turns["rle2"]),
+             "plain_ms": mean(turns["rle2_plain"]), "turns_ms": turns,
+             "device_us": us["rle2"], **bound(rle_bytes, lanes)},
+            {"name": "pack_groups", "route": "cuda",
+             "source": "lbzip2_tpu_torch/csrc/pack_groups.cu",
+             "replaces": "lbzip2_tpu/ops/chain.py:222", "launches": 0,
+             "max_abs_err": errs["pack"], "ms": mean(turns["pack"]),
+             "plain_ms": mean(turns["pack_plain"]), "W": W,
+             "device_us": us["pack"], **bound(pack_bytes, symbols)}]
 
 
 def main(argv=None) -> int:
@@ -2400,7 +2721,8 @@ def main(argv=None) -> int:
                     "the whole stream with the plain EM loop, the stream "
                     "runs (shipped default, device-only, both decoders "
                     "with their stage times), and the decode phase under "
-                    "the profiler; with --tree only the stream runs")
+                    "the profiler; with --tree only the per-op table, "
+                    "one profiled device-only run and the stream runs")
     ap.add_argument("--kernels", action="store_true",
                     help="only hold the kernels against their plain "
                     "versions and time them on the smoke's timed inputs")
@@ -2434,7 +2756,7 @@ def main(argv=None) -> int:
     from lbzip2_tpu_torch.codec import encoder
     from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
     from lbzip2_tpu_torch.ops import (bitpack, bwt2, chain, crc, huffenc,
-                                      mtf_pallas, sort_sweeps)
+                                      mtf_pallas, rle2, sort_sweeps)
     from lbzip2_tpu_torch.tools import sort_probe
 
     dev = torch.device("cuda", 0)
@@ -2469,6 +2791,7 @@ def main(argv=None) -> int:
     crc_record["smoke_launches"] = crc.launches
     bitpack_record["smoke_launches"] = bitpack.launches
     seed_record, pass_record = bwt2_phase(data, text, dev)
+    rle2_record, pack_record = entropy_phase(data, text, text_batch, dev)
     if args.measure:
         op_table(text, text_batch, dev)
     del text_batch, text_h, text_args
@@ -2488,27 +2811,16 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     # count what the plain loop would run: on the card every chain batch
     # must go through the EM kernels and none through the plain loop, its
-    # E-step or a stand-alone M-step
-    off_path = {"_em_chain": 0, "_em_estep_hist": 0,
-                "make_code_lengths_rows": 0}
-
-    def counted(name, fn):
-        def call(*a):
-            off_path[name] += 1
-            return fn(*a)
-        return call
-
-    plain_fns = {"_em_chain": (huffenc, huffenc._em_chain),
-                 "_em_estep_hist": (chain, chain._em_estep_hist),
-                 "make_code_lengths_rows": (
-                     huffenc, huffenc.make_code_lengths_rows)}
-    for name, (mod, fn) in plain_fns.items():
-        setattr(mod, name, counted(name, fn))
+    # E-step or a stand-alone M-step, and through the RLE2 and packing
+    # kernels and none of their plain versions
+    off_path: dict = {}
     mtf_pallas.launches = huffenc.launches = huffenc.em_launches = 0
     crc.launches = bitpack.launches = 0
     bwt2.launches = bwt2.pass_launches = 0
+    rle2.launches = chain.pack_launches = 0
     t0 = time.time()
-    out = encoder.compress(data, 9, device=dev)
+    with plain_twins_counted(off_path):
+        out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
     launches, mstep_launches, em_launches = \
         mtf_pallas.launches, huffenc.launches, huffenc.em_launches
@@ -2516,8 +2828,8 @@ def main(argv=None) -> int:
     pass_record["launches"] = bwt2.pass_launches
     crc_record["launches"] = crc.launches  # not on the main path: 0
     bitpack_record["launches"] = bitpack.launches
-    for name, (mod, fn) in plain_fns.items():
-        setattr(mod, name, fn)
+    rle2_record["launches"] = rle2.launches
+    pack_record["launches"] = chain.pack_launches
     stats = encoder.last_stats
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"compress (warm run): {dt:.3f} s = {len(data) / dt / 1e6:.3f} "
@@ -2526,7 +2838,9 @@ def main(argv=None) -> int:
         f"card {em_launches} for {len(stats['batch_trace'])} batches, "
         f"{mstep_launches} M-step launches among them, off the kernels "
         f"{json.dumps(off_path)}, BWT seeds {seed_record['launches']} and "
-        f"passes {pass_record['launches']} on the kernels")
+        f"passes {pass_record['launches']} on the kernels, RLE2 "
+        f"{rle2_record['launches']} and packing {pack_record['launches']} "
+        f"launches")
 
     def log_batches(stats):
         for i, tele in enumerate(stats["batch_trace"]):
@@ -2560,6 +2874,8 @@ def main(argv=None) -> int:
     assert launches > 0, "main path never launched the MTF kernel"
     assert seed_record["launches"] > 0 and pass_record["launches"] > 0, \
         "main path never launched the BWT kernels"
+    assert rle2_record["launches"] == pack_record["launches"] == \
+        em_launches, "a chain batch missed the RLE2 or packing kernel"
     alive = [t.name for t in threading.enumerate()
              if t.name.startswith("lbz2-")]
     assert not alive, f"engine threads outlived compress: {alive}"
@@ -2620,7 +2936,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [record, sweep_record, huff_record,
                                   ibwt_record, lengths_record, em_record,
                                   crc_record, bitpack_record, seed_record,
-                                  pass_record]}))
+                                  pass_record, rle2_record, pack_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,24 +10,23 @@ the JAX ``chain_payloads``: ``generate_initial_trees``,
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 import numpy as np
 import torch
 
-from lbzip2_tpu_torch import native
-from lbzip2_tpu_torch.core.constants import (GROUP_SIZE, MAX_ALPHA_SIZE,
-                                             MAX_TREES)
+from lbzip2_tpu_torch import _build, native
+from lbzip2_tpu_torch.core.constants import GROUP_SIZE, MAX_TREES
 from lbzip2_tpu_torch.device import upload
 from lbzip2_tpu_torch.interop import M32
 from lbzip2_tpu_torch.ops.huffenc import em_chain_rows
 from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
                                           num_trees_for)
 from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
-from lbzip2_tpu_torch.ops.rle2 import _rle2_batch
+from lbzip2_tpu_torch.ops.rle2 import WIDTH, _rle2_batch, rle2_hist_rows
 from lbzip2_tpu_torch.parallel.sharding import run_shards
 
-WIDTH = MAX_ALPHA_SIZE + 1  # 259: symbols 0..257 + per-row dummy `as`
 _SLOT_WORDS = 32            # 1024 bits >= 50 codes * 20 bits + padding
 
 # Flat download: per-row payload words compacted into whole chunks.
@@ -67,51 +66,22 @@ def _group_hist(mtfv: torch.Tensor, nm: torch.Tensor,
     return hist.float(), groups, ngroups.int()
 
 
-_FLAT_WAYS = 32
-
-
-def _flat_hist(mtfv: torch.Tensor, nm: torch.Tensor,
-               ninuse: torch.Tensor) -> torch.Tensor:
-    """Flat symbol histogram (B, WIDTH) int32 of the padded groups,
-    counted from the symbols: the values of ``_group_hist(...)[0].sum(1)``
-    (the pad positions at lane ``as``, the clamp to lane 258) without
-    the per-group tensor."""
-    B, NP = mtfv.shape
-    dev = mtfv.device
-    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
-    pos = torch.arange(NP, dtype=torch.int32, device=dev)[None]
-    live = pos < nm[:, None]
-    # _FLAT_WAYS counts a row, neighbouring positions in different ones
-    # (a text row is mostly two symbols: one count a row would have a
-    # card's atomics queue on two addresses); a row's dead positions go
-    # to a bin of their own past its lanes
-    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-    way = rows * _FLAT_WAYS + pos % _FLAT_WAYS
-    idx = torch.where(live, mtfv.clamp(max=WIDTH - 1), WIDTH) + \
-        way * (WIDTH + 1)
-    hist = torch.bincount(idx.reshape(-1),
-                          minlength=B * _FLAT_WAYS * (WIDTH + 1))
-    hist = hist.reshape(B, _FLAT_WAYS, WIDTH + 1).sum(1)[:, :WIDTH].int()
-    pads = (G * GROUP_SIZE - live.sum(1)).int()
-    hist.scatter_add_(1, (ninuse + 2).clamp(max=WIDTH - 1).long()[:, None],
-                      pads[:, None])
-    return hist
-
-
 def _chain_mtf2(bwt: torch.Tensor, ns: torch.Tensor, cmaps: torch.Tensor):
     """BWT bytes -> (mtfv (B, N+1), nm (B,), hist (B, WIDTH) int32 flat
     histogram, hist_g (B, G, WIDTH) float32, ngroups (B,)).  On a CUDA
     device hist_g is None: the EM kernels read the symbols themselves
-    (``ops/huffenc.em_chain_rows``) and the flat histogram is counted
-    directly, so the per-group tensor, five times the symbols it is made
-    from, is never built there."""
+    (``ops/huffenc.em_chain_rows``) and one kernel gives the RLE2 values
+    with their flat histogram (``ops/rle2.py::rle2_hist_rows``), so the
+    per-group tensor, five times the symbols it is made from, is never
+    built there."""
     syms = _compact_syms(bwt, cmaps)
     ninuse = cmaps.int().sum(1, dtype=torch.int32)
     ranks = mtf_ranks_rows(syms, ns)
-    mtfv, nm = _rle2_batch(ranks, ns, ninuse)
-    if mtfv.device.type == "cuda":
+    if ranks.device.type == "cuda":
+        mtfv, nm, hist = rle2_hist_rows(ranks, ns, ninuse)
         ngroups = ((nm + GROUP_SIZE - 1) // GROUP_SIZE).int()
-        return mtfv, nm, _flat_hist(mtfv, nm, ninuse), None, ngroups
+        return mtfv, nm, hist, None, ngroups
+    mtfv, nm = _rle2_batch(ranks, ns, ninuse)
     hist_g, _, ngroups = _group_hist(mtfv, nm, ninuse)
     hist = hist_g.sum(1).int()  # sums < 2^24: exact in float32
     return mtfv, nm, hist, hist_g, ngroups
@@ -150,16 +120,11 @@ def _em_estep_hist(hist: torch.Tensor, ngroups: torch.Tensor,
     return bt, freqs
 
 
-def _pack_groups(mtfv: torch.Tensor, nm: torch.Tensor,
-                 ninuse: torch.Tensor, ngroups: torch.Tensor,
-                 selectors: torch.Tensor, codes: torch.Tensor,
-                 lens: torch.Tensor, start_bit: torch.Tensor, W: int):
-    """Pack every group's Huffman codes into the payload bit stream
-    (lbzip2_tpu/ops/chain.py:222).
-
-    codes (B, 6, WIDTH) int64 (< 2^20), lens (B, 6, WIDTH) int32,
-    start_bit (B,).  Returns (words (B, W) int64 holding big-endian u32
-    payload words, total_bits (B,) int64).  The u32 shifts run in int64
+def _pack_groups_plain(mtfv: torch.Tensor, nm: torch.Tensor,
+                       ninuse: torch.Tensor, ngroups: torch.Tensor,
+                       selectors: torch.Tensor, codes: torch.Tensor,
+                       lens: torch.Tensor, start_bit: torch.Tensor, W: int):
+    """The plain version of ``_pack_groups``: the u32 shifts run in int64
     with a mask; both scatter-adds and the W+1 dump slot stay."""
     B, NP = mtfv.shape
     dev = mtfv.device
@@ -217,7 +182,94 @@ def _pack_groups(mtfv: torch.Tensor, nm: torch.Tensor,
                      val.reshape(B, -1))
     words = out[:, :W] & M32
     wpos = torch.arange(W, device=dev)[None] * 32
-    return torch.where(wpos < total[:, None], words, 0), total
+    words = torch.where(wpos < total[:, None], words, 0)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int(), total
+
+
+pack_launches = 0  # CUDA kernel launches made by _pack_groups
+
+
+def _pack_lib():
+    lib = _build.load("pack_groups")
+    fn = lib.lbz2t_pack_groups
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.lbz2t_pack_scratch_ints.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_pack_scratch_ints.restype = ctypes.c_longlong
+    return lib
+
+
+def _pack_groups_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
+                      ninuse: torch.Tensor, ngroups: torch.Tensor,
+                      selectors: torch.Tensor, codes: torch.Tensor,
+                      lens: torch.Tensor, start_bit: torch.Tensor, W: int):
+    """Launch the CUDA kernels of ``csrc/pack_groups.cu`` on the current
+    stream (no synchronize, nothing read on the host)."""
+    global pack_launches
+    dev = mtfv.device
+    rows = (nm, ninuse, ngroups, start_bit)
+    ints = rows + (mtfv, selectors, lens)
+    if dev.type != "cuda" or any(a.device != dev for a in ints + (codes,)):
+        raise ValueError("_pack_groups_cuda needs every input on one CUDA "
+                         "device")
+    if any(a.dtype != torch.int32 for a in ints) or \
+            codes.dtype != torch.int64:
+        raise TypeError("_pack_groups_cuda takes int32 inputs and int64 "
+                        "codes")
+    if mtfv.dim() != 2:
+        raise ValueError(f"bad mtfv shape {tuple(mtfv.shape)}")
+    B, NP = mtfv.shape
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    if any(a.shape != (B,) for a in rows) or selectors.shape != (B, G) or \
+            codes.shape != (B, MAX_TREES, WIDTH) or lens.shape != codes.shape:
+        raise ValueError("bad _pack_groups shapes")
+    if not all(a.is_contiguous() for a in ints + (codes,)):
+        raise ValueError("_pack_groups_cuda inputs must be contiguous")
+    lib = _pack_lib()
+    with torch.cuda.device(dev):  # the C side launches on it
+        words = torch.zeros((B, W), dtype=torch.int32, device=dev)
+        if B == 0 or NP == 0:
+            return words, start_bit.long()
+        total = torch.empty(B, dtype=torch.int64, device=dev)
+        scratch = torch.empty(lib.lbz2t_pack_scratch_ints(B, NP),
+                              dtype=torch.int32, device=dev)
+        err = lib.lbz2t_pack_groups(
+            mtfv.data_ptr(), nm.data_ptr(), ninuse.data_ptr(),
+            ngroups.data_ptr(), selectors.data_ptr(), codes.data_ptr(),
+            lens.data_ptr(), start_bit.data_ptr(), words.data_ptr(),
+            total.data_ptr(), scratch.data_ptr(), B, NP, W,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"pack_groups kernel launch failed: "
+                               f"cudaError {err}")
+    pack_launches += 1
+    return words, total
+
+
+def _pack_groups(mtfv: torch.Tensor, nm: torch.Tensor,
+                 ninuse: torch.Tensor, ngroups: torch.Tensor,
+                 selectors: torch.Tensor, codes: torch.Tensor,
+                 lens: torch.Tensor, start_bit: torch.Tensor, W: int):
+    """Pack every group's Huffman codes into the payload bit stream
+    (lbzip2_tpu/ops/chain.py:222).
+
+    mtfv (B, NP), nm, ninuse, ngroups (B,), selectors (B, G) int32 (G =
+    ceil(NP / 50); clamped to 0..5); codes (B, 6, WIDTH) int64 (< 2^20
+    and below 2^len), lens (B, 6, WIDTH) int32 (the dummy symbol's
+    length is read like any other), start_bit (B,) int32.  Returns
+    (words (B, W) int32 holding the big-endian u32 payload words as bit
+    patterns, 0 past the row's bits; total_bits (B,) int64, start_bit
+    included).  A row past W keeps its words below W.  The CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if mtfv.device.type == "cuda":
+        return _pack_groups_cuda(mtfv, nm, ninuse, ngroups, selectors,
+                                 codes, lens, start_bit, W)
+    if mtfv.device.type == "cpu":
+        return _pack_groups_plain(mtfv, nm, ninuse, ngroups, selectors,
+                                  codes, lens, start_bit, W)
+    raise ValueError(f"unsupported device {mtfv.device}")
 
 
 def _flatten_words(words: torch.Tensor, ends: torch.Tensor, F: int,
@@ -240,9 +292,7 @@ def _flatten_download(words: torch.Tensor, ends_dev: torch.Tensor,
     covering ``needed`` words; returns a host uint32 array."""
     nch = (needed + FLAT_CHUNK - 1) // FLAT_CHUNK
     flat = _flatten_words(words, ends_dev, nch * FLAT_CHUNK)
-    # int64-held u32 -> int32 bit pattern: half the bytes on the wire
-    flat = torch.where(flat >= 2 ** 31, flat - 2 ** 32, flat).int()
-    return flat.cpu().numpy().view(np.uint32)
+    return flat.cpu().numpy().view(np.uint32)  # the int32 bit patterns
 
 
 def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
@@ -347,7 +397,7 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
         flat_h = _flatten_download(words, _put(ends), int(ends[-1]))
         rows = [flat_h[(ends[b] - wcnt[b]):ends[b]] for b in range(B)]
     else:
-        words_h = (words.cpu().numpy() & M32).astype(np.uint32)
+        words_h = words.cpu().numpy().view(np.uint32)
         rows = [words_h[b, :wcnt[b]] for b in range(B)]
     t0 = _mark("wait_pack", t0)
 

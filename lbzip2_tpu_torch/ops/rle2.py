@@ -1,17 +1,35 @@
-"""RLE2: MTF ranks -> padded MTF-value stream (zero-run coding).
+"""RLE2: MTF ranks -> padded MTF-value stream (zero-run coding), with the
+flat symbol histogram of its padded groups: the hand-written CUDA kernel,
+its plain PyTorch version and the dispatching wrappers.
 
-Counterpart of lbzip2_tpu/ops/rle2.py::_rle2_batch.  A zero run of
-length k becomes the bijective base-2 RUNA/RUNB digits of k + 1, rank r
-becomes r + 1, EOB (ninuse + 1) terminates.  ``clz`` becomes an integer
-bit length, and the stable-sort compaction a cumsum plus scatter; the
-output is identical.
+Counterpart of lbzip2_tpu/ops/rle2.py::_rle2_batch and of the flat
+histogram of lbzip2_tpu/ops/chain.py::_chain_mtf2 (the per-group
+histogram summed over the groups).  A zero run of length k becomes the
+bijective base-2 RUNA/RUNB digits of k + 1, rank r becomes r + 1, EOB
+(ninuse + 1) terminates.  In the plain version ``clz`` becomes an
+integer bit length and the stable-sort compaction a cumsum plus scatter;
+the kernel is ``csrc/rle2.cu`` (tiles of 4096 lanes summed up as runs
+that combine associatively, then each tile emits the runs that end in
+it, counting the histogram from what it emits).  Both give JAX's output
+exactly.
+
+``rle2_hist_rows`` and ``_rle2_batch`` take the plain version only for a
+CPU tensor.  For a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from lbzip2_tpu_torch import _build
+from lbzip2_tpu_torch.core.constants import GROUP_SIZE, MAX_ALPHA_SIZE
+
+WIDTH = MAX_ALPHA_SIZE + 1  # 259: symbols 0..257 + per-row dummy `as`
 _INF = 2 ** 31 - 1
+
+launches = 0  # CUDA kernel launches made by rle2_hist_rows/_rle2_batch
 
 
 def _floor_log2(x: torch.Tensor) -> torch.Tensor:
@@ -26,12 +44,10 @@ def _floor_log2(x: torch.Tensor) -> torch.Tensor:
     return m
 
 
-def _rle2_batch(ranks: torch.Tensor, ns: torch.Tensor,
+def _rle2_plain(ranks: torch.Tensor, ns: torch.Tensor,
                 ninuse: torch.Tensor):
-    """ranks (B, N) int32 (entries >= n ignored); ns, ninuse (B,).
-
-    Returns (mtfv (B, N+1) int32 compacted to the front, 0 beyond nm;
-    nm (B,) int32 MTF-value counts including EOB)."""
+    """The plain version of ``_rle2_batch``: two cumulative maxima give
+    every lane its run, a cumsum and a scatter compact the kept lanes."""
     B, N = ranks.shape
     dev = ranks.device
     pos = torch.arange(N, dtype=torch.int32, device=dev)[None].expand(B, N)
@@ -67,12 +83,134 @@ def _rle2_batch(ranks: torch.Tensor, ns: torch.Tensor,
     return torch.where(lanes < nm[:, None], mtfv, 0), nm
 
 
+_FLAT_WAYS = 32
+
+
+def _flat_hist(mtfv: torch.Tensor, nm: torch.Tensor,
+               ninuse: torch.Tensor) -> torch.Tensor:
+    """Flat symbol histogram (B, WIDTH) int32 of the padded groups,
+    counted from the symbols: the values of
+    ``ops/chain.py::_group_hist(...)[0].sum(1)`` (the pad positions at
+    lane ``as``, the clamp to lane 258) without the per-group tensor."""
+    B, NP = mtfv.shape
+    dev = mtfv.device
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    pos = torch.arange(NP, dtype=torch.int32, device=dev)[None]
+    live = pos < nm[:, None]
+    # _FLAT_WAYS counts a row, neighbouring positions in different ones
+    # (a text row is mostly two symbols: one count a row would have a
+    # card's atomics queue on two addresses); a row's dead positions go
+    # to a bin of their own past its lanes
+    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    way = rows * _FLAT_WAYS + pos % _FLAT_WAYS
+    idx = torch.where(live, mtfv.clamp(max=WIDTH - 1), WIDTH) + \
+        way * (WIDTH + 1)
+    hist = torch.bincount(idx.reshape(-1),
+                          minlength=B * _FLAT_WAYS * (WIDTH + 1))
+    hist = hist.reshape(B, _FLAT_WAYS, WIDTH + 1).sum(1)[:, :WIDTH].int()
+    pads = (G * GROUP_SIZE - live.sum(1)).int()
+    hist.scatter_add_(1, (ninuse + 2).clamp(max=WIDTH - 1).long()[:, None],
+                      pads[:, None])
+    return hist
+
+
+def rle2_hist_plain(ranks: torch.Tensor, ns: torch.Tensor,
+                    ninuse: torch.Tensor):
+    """The plain version of ``rle2_hist_rows``: ``_rle2_plain``, then
+    ``_flat_hist`` of its output."""
+    mtfv, nm = _rle2_plain(ranks, ns, ninuse)
+    return mtfv, nm, _flat_hist(mtfv, nm, ninuse)
+
+
+def _lib():
+    lib = _build.load("rle2")
+    fn = lib.lbz2t_rle2
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.lbz2t_rle2_scratch_ints.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_rle2_scratch_ints.restype = ctypes.c_longlong
+    return lib
+
+
+def rle2_hist_cuda(ranks: torch.Tensor, ns: torch.Tensor,
+                   ninuse: torch.Tensor):
+    """Launch the CUDA kernels on the current stream (no synchronize,
+    nothing read on the host); see ``rle2_hist_rows``."""
+    global launches
+    dev = ranks.device
+    if dev.type != "cuda" or ns.device != dev or ninuse.device != dev:
+        raise ValueError("rle2_hist_cuda needs ranks, ns and ninuse on one "
+                         "CUDA device")
+    if any(a.dtype != torch.int32 for a in (ranks, ns, ninuse)):
+        raise TypeError("ranks, ns and ninuse must be int32")
+    if ranks.dim() != 2 or ns.shape != (ranks.shape[0],) or \
+            ninuse.shape != ns.shape:
+        raise ValueError(f"bad shapes {tuple(ranks.shape)} / "
+                         f"{tuple(ns.shape)} / {tuple(ninuse.shape)}")
+    if not all(a.is_contiguous() for a in (ranks, ns, ninuse)):
+        raise ValueError("ranks, ns and ninuse must be contiguous")
+    lib = _lib()
+    B, N = ranks.shape
+    with torch.cuda.device(dev):  # the C side launches on it
+        mtfv = torch.empty((B, N + 1), dtype=torch.int32, device=dev)
+        nm = torch.empty(B, dtype=torch.int32, device=dev)
+        hist = torch.empty((B, WIDTH), dtype=torch.int32, device=dev)
+        if B == 0:
+            return mtfv, nm, hist
+        scratch = torch.empty(lib.lbz2t_rle2_scratch_ints(B, N),
+                              dtype=torch.int32, device=dev)
+        err = lib.lbz2t_rle2(ranks.data_ptr(), ns.data_ptr(),
+                             ninuse.data_ptr(), mtfv.data_ptr(),
+                             nm.data_ptr(), hist.data_ptr(),
+                             scratch.data_ptr(), B, N,
+                             torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rle2 kernel launch failed: cudaError "
+                               f"{err}")
+    launches += 1
+    return mtfv, nm, hist
+
+
+def rle2_hist_rows(ranks: torch.Tensor, ns: torch.Tensor,
+                   ninuse: torch.Tensor):
+    """RLE2 with the flat histogram of the padded groups.
+
+    ranks (B, N) int32 (entries >= n ignored); ns, ninuse (B,) int32.
+    Returns (mtfv (B, N+1) int32 compacted to the front, 0 at and beyond
+    nm; nm (B,) int32 MTF-value counts including EOB; hist (B, WIDTH)
+    int32: every lane < nm by its value clamped to 258, plus
+    G * 50 - nm pads at lane min(ninuse + 2, 258), G = ceil((N+1)/50)).
+    The CUDA kernel for CUDA tensors, the plain version for CPU ones."""
+    if ranks.device.type == "cuda":
+        return rle2_hist_cuda(ranks, ns, ninuse)
+    if ranks.device.type == "cpu":
+        return rle2_hist_plain(ranks, ns, ninuse)
+    raise ValueError(f"unsupported device {ranks.device}")
+
+
+def _rle2_batch(ranks: torch.Tensor, ns: torch.Tensor,
+                ninuse: torch.Tensor):
+    """ranks (B, N) int32 (entries >= n ignored); ns, ninuse (B,).
+
+    Returns (mtfv (B, N+1) int32 compacted to the front, 0 beyond nm;
+    nm (B,) int32 MTF-value counts including EOB): the kernel of
+    ``rle2_hist_rows`` (its histogram dropped) for CUDA tensors, the
+    plain version for CPU ones."""
+    if ranks.device.type == "cuda":
+        return rle2_hist_cuda(ranks, ns, ninuse)[:2]
+    if ranks.device.type == "cpu":
+        return _rle2_plain(ranks, ns, ninuse)
+    raise ValueError(f"unsupported device {ranks.device}")
+
+
 def rle2_from_ranks(ranks: torch.Tensor, n, ninuse):
     """Single-row form of ``_rle2_batch`` (lbzip2_tpu/ops/rle2.py:74):
     ranks (N,) int32 -> (mtfv (N+1,) int32, nm 0-d int32)."""
     dev = ranks.device
     mtfv, nm = _rle2_batch(
-        ranks.int()[None], torch.tensor([int(n)], dtype=torch.int32,
-                                        device=dev),
+        ranks.int()[None].contiguous(),
+        torch.tensor([int(n)], dtype=torch.int32, device=dev),
         torch.tensor([int(ninuse)], dtype=torch.int32, device=dev))
     return mtfv[0], nm[0]

@@ -81,7 +81,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 KERNELS = ["bitpack", "bwt2_sort", "code_lengths", "crc32", "em_chain",
-           "huffdec", "ibwt", "mtf_ranks", "sort_sweeps"]
+           "huffdec", "ibwt", "mtf_ranks", "pack_groups", "rle2",
+           "sort_sweeps"]
 
 
 def test_every_kernel_source_is_found():
@@ -89,9 +90,9 @@ def test_every_kernel_source_is_found():
 
 
 def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
-    """The repository's nine sources, the CRC, the bit packer and the
-    BWT's suffix sort among them, each built by a compiler process of
-    its own."""
+    """The repository's eleven sources, the CRC, the bit packer, the
+    BWT's suffix sort, the RLE2 and the group packing among them, each
+    built by a compiler process of its own."""
     import shutil
 
     csrc = tmp_path / "csrc"
@@ -116,7 +117,8 @@ def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
     assert sorted(_build.build_log) == KERNELS
 
 
-@pytest.mark.parametrize("name", ["crc32", "bitpack", "bwt2_sort"])
+@pytest.mark.parametrize("name", ["crc32", "bitpack", "bwt2_sort",
+                                  "rle2", "pack_groups"])
 def test_missing_toolchain_raises_for_new_kernels(name, tmp_path,
                                                   monkeypatch):
     def no_nvcc():
@@ -168,3 +170,38 @@ def test_bwt2_wrappers_raise_for_a_cuda_tensor_without_nvcc(fn, tmp_path,
     with pytest.raises(ValueError, match="unsupported device"):
         getattr(bwt2, fn)(*((meta, ns) if fn == "_seed16"
                             else (meta, 16, ns)))
+
+
+@pytest.mark.parametrize("fn", ["rle2_hist_rows", "_rle2_batch",
+                                "_pack_groups"])
+def test_entropy_wrappers_raise_for_a_cuda_tensor_without_nvcc(
+        fn, tmp_path, monkeypatch):
+    """The RLE2 and group-packing wrappers on a CUDA tensor (a fake one:
+    this box has no card) reach their kernels' build and raise; nothing
+    falls back to the plain versions, and no launch is counted."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from lbzip2_tpu_torch.ops import chain, rle2
+
+    _no_nvcc(tmp_path, monkeypatch)
+    calls = []
+    for mod, name in ((rle2, "_rle2_plain"), (rle2, "rle2_hist_plain"),
+                      (chain, "_pack_groups_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name: calls.append(_n))
+    B, N = 2, 64
+    with FakeTensorMode():
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device="cuda")
+
+        if fn == "_pack_groups":
+            G = -(-N // 50)
+            args = (i32(B, N), i32(B), i32(B), i32(B), i32(B, G),
+                    torch.zeros((B, 6, 259), dtype=torch.int64,
+                                device="cuda"), i32(B, 6, 259), i32(B), 40)
+        else:
+            args = (i32(B, N), i32(B), i32(B))
+    before = rle2.launches, chain.pack_launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(rle2 if fn != "_pack_groups" else chain, fn)(*args)
+    assert (rle2.launches, chain.pack_launches) == before and not calls

@@ -1,6 +1,7 @@
-"""The flat symbol histogram that the card's path counts from the symbols
-(lbzip2_tpu_torch/ops/chain.py::_flat_hist) against the sum of the
-per-group histogram it replaces there and against the JAX package's.
+"""The flat symbol histogram of the padded groups, counted from the symbols
+(lbzip2_tpu_torch/ops/rle2.py::_flat_hist, the plain half of the RLE2
+kernel's twin), against the sum of the per-group histogram it replaces
+on the card's path and against the JAX package's.
 Inputs are made with numpy from seeds; every comparison is exact.
 """
 
@@ -10,19 +11,19 @@ import pytest
 
 from lbzip2_tpu.ops import chain as jchain
 from lbzip2_tpu_torch.interop import to_numpy, to_torch
-from lbzip2_tpu_torch.ops import chain
+from lbzip2_tpu_torch.ops import chain, rle2
 from test_torch_em_kernel import CASES, G, _rows
 
 
 @pytest.mark.parametrize("name", ["text_8_rows", "as_2_and_258", "rows_1"])
 def test_flat_hist_counts_what_the_group_histogram_sums_to(name):
-    """_flat_hist, which the card's path uses in place of the per-group
-    histogram, against hist_g.sum(1): the pads at lane `as` and symbols
-    clamped to lane 258 included."""
+    """_flat_hist, the histogram half of the RLE2 kernel's plain twin,
+    against hist_g.sum(1): the pads at lane `as` and symbols clamped to
+    lane 258 included."""
     mtfv, nm, ninuse = _rows(CASES[name][0], seed=len(name))
     mtfv[0, 0] = 300  # out of range: lands in lane 258 in both
     args = [to_torch(a) for a in (mtfv, nm, ninuse)]
-    got = to_numpy(chain._flat_hist(*args))
+    got = to_numpy(rle2._flat_hist(*args))
     np.testing.assert_array_equal(
         got, to_numpy(chain._group_hist(*args)[0].sum(1).int()))
     hist_g, _, _ = jchain.group_hist(*(jnp.asarray(a) for a in (
@@ -47,5 +48,5 @@ def test_flat_hist_equals_chain_mtf2_of_jax():
                              jnp.asarray(cmaps))
     ninuse = to_torch(cmaps.sum(1, dtype=np.int32))
     np.testing.assert_array_equal(
-        to_numpy(chain._flat_hist(mtfv, nm, ninuse)), np.asarray(want[2]))
+        to_numpy(rle2._flat_hist(mtfv, nm, ninuse)), np.asarray(want[2]))
     np.testing.assert_array_equal(to_numpy(hist), np.asarray(want[2]))
