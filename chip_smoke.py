@@ -8,10 +8,11 @@ The second form runs no phase: it builds the kernels of this checkout
 (or of the checkout at DIR, whose wrappers have the same signatures:
 run both in turns inside one call to compare two trees), holds them
 against their plain versions on the timed inputs of phases 3, 4, 8, 9,
-12, 13, 14, 15 and 19 (a checkout without the CRC and the bit packer
-times the six it has; one without the BWT's suffix-sort kernels times
-the plain suffix sorts its main path ran), and prints their CUDA-event
-times, with
+12, 13, 14, 15, 19, 20 and 21 (a checkout without the CRC and the bit
+packer times the six it has; one without the BWT's suffix-sort kernels
+times the plain suffix sorts its main path ran; one without the emits,
+the MTF byte entry or the flat compaction skips them), and prints their
+CUDA-event times, with
 --profile each CUDA kernel's device time too, the sweep loop's SASS,
 and the peak of device memory over one text batch through
 chain_payloads, as one JSON line.  The third runs no phase either:
@@ -220,6 +221,32 @@ Phases (any failure exits non-zero before the last line is printed):
              time.  (It runs after phase 19.)  Phases 6, 16 and 17
              assert that their paths launched both and called neither
              plain version, phase 18 that each process launched both.
+ 21. emits:  the BWT's emits (csrc/bwt2_emit.cu behind ops/bwt2.py::
+             _emit_bytes, a scatter, and _emit2's run tokens), the MTF
+             kernel's byte entry with _compact_syms fused into its loads
+             (ops/mtf_pallas.py::mtf_ranks_bytes_rows) and the flat
+             payload compaction (csrc/flatten_words.cu behind
+             ops/chain.py::_flatten_words) against their plain versions,
+             tolerance 0: the emits (rows below n, zeros past n, primary;
+             run counts, tokens below the count and the capacity, zeros
+             past the count, raw below n) on the resolve loop's ISA of
+             every case of phase 19 and on designed rows under random
+             permutations (runs of 254 to 765 bytes across the token
+             tiles' edges, one run of a row, runs that touch n, counts
+             past N / 4, n = 0, 1 and 4097, full-width rows), each ISA
+             first asserted a permutation on the lanes < n; the byte
+             entry on the text batch, every emitted batch and rows of 1
+             and 256 used values with garbage past n; the compaction on
+             the arguments chain_payloads gives it and on rows of 0
+             words, base > 0, F past the end and one row; every wrapper
+             once under torch.cuda.set_sync_debug_mode("error");
+             CUDA-event times in turns of each kernel, its plain version
+             and its library call (scatter_, gather) where one exists,
+             and each kernel's device time.  (It runs after phase 20.)
+             Phases 6, 16, 17 and 18 assert that their paths launched
+             the emit, the byte entry and the compaction, phase 7's
+             child the emit and the tokens, and that none ran a plain
+             twin.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -435,7 +462,8 @@ def bound(nbytes: float, ops: float) -> dict:
     functions (the EM loop least of all: a data-dependent number of
     rounds of a packed argmin and a Huffman construction), so there is
     no library time to set beside them; the BWT's records set the sort
-    their radix passes compute (bwt2_phase)."""
+    their radix passes compute (bwt2_phase), the emit's a scatter_ and
+    the fused MTF load's its compaction's gather (emits_phase)."""
     by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT_OPS_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "library_ms": None,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
@@ -611,7 +639,8 @@ def device_us(fn, reps: int = 5) -> dict:
 
 
 OPS = (("bwt2", ("_seed16", "_pass8", "_pass_in_place", "_emit_bytes")),
-       ("chain", ("_compact_syms", "mtf_ranks_rows", "_rle2_batch",
+       ("chain", ("_compact_syms", "mtf_ranks_rows", "mtf_ranks_bytes_rows",
+                  "_rle2_batch",
                   "_flat_hist", "rle2_hist_rows", "em_chain_rows",
                   "_pack_groups", "_flatten_words")))
 
@@ -1193,19 +1222,24 @@ def token_run(eligible: int) -> int:
     for name in calls:
         calls[name] = 0
     bwt2.launches = bwt2.pass_launches = 0
+    bwt2.emit_launches = bwt2.token_launches = 0
+    plain: dict = {}
     t0 = time.time()
-    out = encoder.compress(data, 9, device=dev)
+    with plain_twins_counted(plain):
+        out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
     stats = encoder.last_stats
     calls["bwt2_seed16"] = bwt2.launches - bwt2.pass_launches
     calls["bwt2_pass8"] = bwt2.pass_launches
+    calls["emit_bytes"] = bwt2.emit_launches
+    calls["emit_tokens"] = bwt2.token_launches
     print(json.dumps({
         "warm_device_s": warm, "first_s": first, "s": dt,
         "mbps": len(data) / dt / 1e6, "bytes": len(out),
         "sha256": hashlib.sha256(out).hexdigest(), "same_as_first":
         out == cold, "roundtrip": bz2.decompress(out) == data,
         "device_blocks": stats["device_blocks"], "eligible": eligible,
-        "calls": calls, "batches": [
+        "calls": calls, "plain": plain, "batches": [
             {k: t.get(k) for k in ("rows", "prep_s", "dispatch_s",
                                    "ready_s", "expand_s")}
             for t in stats["batch_trace"]]}), flush=True)
@@ -1237,6 +1271,11 @@ def token_phase(data: bytes, eligible: int, ref: bytes) -> dict:
     assert res["calls"]["bwt2_seed16"] > 0 and \
         res["calls"]["bwt2_pass8"] > 0, \
         f"token mode missed the BWT kernels: {res['calls']}"
+    assert res["calls"]["emit_bytes"] > 0 and \
+        res["calls"]["emit_tokens"] == res["calls"]["bwt2_tokens"] and \
+        not any(res["plain"].values()), \
+        f"token mode missed the emit kernels: {res['calls']}, " \
+        f"{res['plain']}"
     return res
 
 
@@ -1721,6 +1760,31 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
             calls[f"bwt2_loop_{case}"] = (
                 lambda i, m: (bwt2._resolve_loop(i, m), none),
                 lambda i, m: (plain_loop(bwt2, i, m)[0], none), (r, n))
+    # the emits on the text rows' ISA, the MTF byte entry on the text
+    # batch and the flat compaction of its payload words; a checkout from
+    # before their kernels has none of the four
+    emit_ns = {}
+    if hasattr(bwt2, "_emit_bytes_plain"):
+        ea = (rows_d, bwt2._resolve_loop(rows_d, ns_d), ns_d,
+              torch.from_numpy(text_rows(text)[2]).to(dev))
+        sbwt = bwt2._emit_bytes(*ea)[0]
+        lib = bwt2._emit_lib()
+        calls["emit_bytes_text_32x901120"] = (
+            bwt2._emit_bytes, bwt2._emit_bytes_plain, ea)
+        calls["emit_tokens_text_32x901120"] = (
+            lambda b, n: bwt2._tokens_cuda(lib, b, n), bwt2._tokens_plain,
+            (sbwt, ns_d))
+        emit_ns = {"emit_bytes_text_32x901120": ns_d,
+                   "emit_tokens_text_32x901120": ns_d}
+    if hasattr(mtf_pallas, "mtf_ranks_bytes_rows"):
+        calls["mtf_ranks_bytes_text_32x901120"] = (
+            mtf_pallas.mtf_ranks_bytes_rows, mtf_pallas.mtf_ranks_bytes_plain,
+            (bwt, torch.from_numpy(cmaps).to(dev),
+             torch.from_numpy(ns).to(dev)))
+    if hasattr(chain, "_flatten_words_plain"):
+        calls["flatten_words_text_32x901120"] = (
+            chain._flatten_words, chain._flatten_words_plain,
+            flatten_args(bwt, ns, cmaps, primary.cpu().numpy()))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
@@ -1729,7 +1793,11 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
         if name.startswith("bwt2"):  # the ISA's lanes < n, and cnt
             got, want = ((valid_lanes(x[0], a[-1]), x[1])
                          for x in (got, want))
-        res["max_abs_err"][name] = max_err_of(got, want)
+        if name in emit_ns:
+            res["max_abs_err"][name] = max(
+                emit_errs(got, want, emit_ns[name]).values())
+        else:
+            res["max_abs_err"][name] = max_err_of(got, want)
         res["ms"][name] = cuda_ms(lambda: kernel(*a), 50 if name.startswith(
             ("code", "huff", "crc", "bitpack")) else 10)
         if profiled:
@@ -2237,6 +2305,8 @@ def reset_counts() -> None:
     mtf_pallas.launches = huffenc.em_launches = huffenc.launches = 0
     ibwt.launches = bwt2.launches = bwt2.pass_launches = 0
     rle2.launches = chain.pack_launches = 0
+    bwt2.emit_launches = bwt2.token_launches = 0
+    mtf_pallas.bytes_launches = chain.flatten_launches = 0
 
 
 def read_counts() -> dict:
@@ -2248,7 +2318,11 @@ def read_counts() -> dict:
             "ibwt": ibwt.launches,
             "bwt2_seed16": bwt2.launches - bwt2.pass_launches,
             "bwt2_pass8": bwt2.pass_launches, "rle2_hist": rle2.launches,
-            "pack_groups": chain.pack_launches}
+            "pack_groups": chain.pack_launches,
+            "emit_bytes": bwt2.emit_launches,
+            "emit_tokens": bwt2.token_launches,
+            "mtf_ranks_bytes": mtf_pallas.bytes_launches,
+            "flatten_words": chain.flatten_launches}
 
 
 def sharded_phase(dev) -> dict:
@@ -2272,10 +2346,7 @@ def sharded_phase(dev) -> dict:
     log(f"sharded: dryrun_multichip({count}) over {count} card(s) at "
         f"{WIDTH}: {wall:.2f} s, {json.dumps(res)}; launches "
         f"{json.dumps(counts)}; plain versions {json.dumps(plain)}")
-    assert counts["mtf_ranks"] and counts["em_chain"] and counts["ibwt"] \
-        and counts["bwt2_seed16"] and counts["bwt2_pass8"] and \
-        counts["rle2_hist"] and counts["pack_groups"] and \
-        not any(plain.values()), \
+    assert all(counts.values()) and not any(plain.values()), \
         f"the dry run missed a kernel of its path: {counts}, {plain}"
     blocks, ns, ms, raws, cmaps, rle_rows = entry.dryrun_blocks(4, WIDTH)
     cmaps = np.stack([np.asarray(c, np.uint8) for c in cmaps])
@@ -2332,8 +2403,9 @@ def sharded_phase(dev) -> dict:
             k: b - a for k, a, b in zip(steps, marks, marks[1:])}})
         if i == 0:  # the sharded chain ran the entropy kernels
             shard_counts = read_counts()
-            assert shard_counts["rle2_hist"] and \
-                shard_counts["pack_groups"] and \
+            assert all(shard_counts[k] for k in (
+                "rle2_hist", "pack_groups", "emit_bytes", "emit_tokens",
+                "mtf_ranks_bytes", "flatten_words")) and \
                 not any(plain.values()), \
                 f"the sharded chain missed a kernel: {shard_counts}, {plain}"
     (rows, prim, tok, pay, dec), (rows1, prim1, tok1, pay1, dec1) = \
@@ -2382,7 +2454,8 @@ def engine_cards_phase(data: bytes, ref: bytes, dev) -> dict:
     assert counts["mtf_ranks"] and counts["em_chain"] and \
         counts["bwt2_seed16"] and counts["bwt2_pass8"] and \
         counts["rle2_hist"] and counts["pack_groups"] and \
-        not any(plain.values()), (counts, plain)
+        counts["emit_bytes"] and counts["mtf_ranks_bytes"] and \
+        counts["flatten_words"] and not any(plain.values()), (counts, plain)
     return {"cards": count, "s": dt, "batch_devs": devs, "launches": counts}
 
 
@@ -2398,6 +2471,7 @@ data = open(src, "rb").read()
 a, b = MH.shard_bounds(len(data), 9, nproc, pid)
 mtf_pallas.launches = huffenc.em_launches = bwt2.launches = 0
 rle2.launches = chain.pack_launches = 0
+bwt2.emit_launches = mtf_pallas.bytes_launches = chain.flatten_launches = 0
 out = MH.compress_multihost(data[a:b], 9, engine="hybrid", device=dev)
 if pid == 0:
     open(dst, "wb").write(out)
@@ -2405,6 +2479,9 @@ print(json.dumps({"pid": pid, "shard": [a, b], "mtf_ranks":
                   mtf_pallas.launches, "em_chain": huffenc.em_launches,
                   "bwt2": bwt2.launches, "rle2_hist": rle2.launches,
                   "pack_groups": chain.pack_launches,
+                  "emit_bytes": bwt2.emit_launches,
+                  "mtf_ranks_bytes": mtf_pallas.bytes_launches,
+                  "flatten_words": chain.flatten_launches,
                   "stream": out is not None}), flush=True)
 torch.distributed.destroy_process_group()
 """
@@ -2466,7 +2543,8 @@ def multihost_phase(data: bytes, dev) -> dict:
     assert stream == single, "the two-process stream differs from one host"
     assert bz2.decompress(stream) == prefix
     assert all(r["mtf_ranks"] and r["em_chain"] and r["bwt2"] and
-               r["rle2_hist"] and r["pack_groups"] for r in recs), \
+               r["rle2_hist"] and r["pack_groups"] and r["emit_bytes"] and
+               r["mtf_ranks_bytes"] and r["flatten_words"] for r in recs), \
         f"a process's shard missed the card's kernels: {recs}"
     return {"s": wall, "processes": recs}
 
@@ -2495,17 +2573,22 @@ def pack_args(bwt, ns, cmaps, idxs) -> tuple:
 
 @contextlib.contextmanager
 def plain_twins_counted(counts: dict):
-    """Count the calls of the plain versions of the chain's kernels while
-    the block runs: the EM loop, its E-step and stand-alone M-step, the
-    RLE2, its flat histogram and the group packing.  A path on the card
-    makes none."""
-    from lbzip2_tpu_torch.ops import chain, huffenc, rle2
+    """Count the calls of the plain versions of the main path's kernels
+    while the block runs: the EM loop, its E-step and stand-alone M-step,
+    the RLE2, its flat histogram, the group packing, the BWT's emits, the
+    compaction of the MTF's byte load and the flat payload compaction.
+    A path on the card makes none."""
+    from lbzip2_tpu_torch.ops import bwt2, chain, huffenc, mtf_pallas, rle2
 
     saved = []
     for mod, name in ((huffenc, "_em_chain"), (chain, "_em_estep_hist"),
                       (huffenc, "make_code_lengths_rows"),
                       (rle2, "_rle2_plain"), (rle2, "_flat_hist"),
-                      (chain, "_pack_groups_plain")):
+                      (chain, "_pack_groups_plain"),
+                      (bwt2, "_emit_bytes_plain"), (bwt2, "_emit2_plain"),
+                      (bwt2, "_tokens_plain"), (mtf_pallas, "_compact_syms"),
+                      (mtf_pallas, "mtf_ranks_bytes_plain"),
+                      (chain, "_flatten_words_plain")):
         fn = getattr(mod, name)
         counts.setdefault(name, 0)
 
@@ -2713,6 +2796,337 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
              "device_us": us["pack"], **bound(pack_bytes, symbols)}]
 
 
+def emit_inputs(D, ns, rng):
+    """Emit inputs (blocks, ISA, ns, ms) on the host whose BWT rows are
+    the designed rows D (B, N) uint8 at the lanes < n: a random
+    permutation of [0, n) for each row's ISA, and blocks[j] =
+    D[ISA[(j + 1) mod n]], so that the emit's bwt[ISA[p]] = prev[p]
+    writes D; random garbage at and past n in the blocks and the ISA,
+    m random below n."""
+    B, N = D.shape
+    blocks = rng.integers(0, 256, (B, N), dtype=np.uint8)
+    isa = rng.integers(INT32_MIN, INT32_MAX, (B, N), dtype=np.int32)
+    ms = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(ns[b])
+        if n:
+            perm = rng.permutation(n).astype(np.int32)
+            isa[b, :n] = perm
+            blocks[b, :n] = D[b, perm[(np.arange(n) + 1) % n]]
+            ms[b] = rng.integers(0, n)
+    return blocks, isa, ns.astype(np.int32), ms
+
+
+def emit_edge_rows() -> dict:
+    """Designed BWT rows for the emits, name -> (D, ns) on the host: runs
+    of 254, 255, 256, 510 and 511 bytes across the token kernels' tile
+    edges (every 4096 lanes) at several offsets, a run from a tile's
+    first lane, one run of the whole row, a run that touches n, a random
+    row whose run count passes N / 4, n = 0, 1 and 4097; and at full
+    width a row of one run, a random row, a row of runs of exactly 255
+    and a row whose last run touches n = 900,000."""
+    rng = np.random.default_rng(22)
+    N = 65536
+    D = rng.integers(0, 256, (8, N), dtype=np.uint8)
+    p = 0
+    for k in range(1, 15):  # row 0: runs across the edges
+        edge, L = 4096 * k, (254, 255, 256, 510, 511, 765, 1)[k % 7]
+        lo = edge - (0, 1, 100, 254, 255, 256, 509)[k % 7]
+        D[0, lo:lo + L] = D[0, lo - 1] ^ 1
+        p = lo + L
+    D[0, p] = D[0, p - 1] ^ 2
+    D[1] = 7  # one run of the whole row
+    D[2, 49000:50000] = 3  # a run that touches n
+    D[4, 4096:4096 + 255 * 16 + 1] = 9  # from a tile's first lane
+    D[6, 3000:4097] = 5  # n = 4097: a run over the first edge to n
+    ns = np.array([N, N, 50000, N, N, 0, 4097, 1], np.int32)
+    F = WIDTH
+    W = rng.integers(0, 256, (4, F), dtype=np.uint8)
+    W[0] = 11
+    W[2] = np.repeat(np.arange(F // 255 + 1) % 2 + 40, 255)[:F]
+    W[3, 899000:900000] = 12
+    return {"edges_8x65536": (D, ns),
+            "full_width_4x901120": (W, np.array([F, F, F, 900000],
+                                                np.int32))}
+
+
+def assert_permutation(isa, ns, name: str) -> None:
+    """The emit kernel's precondition: on the lanes < n the ISA is a
+    permutation of [0, n)."""
+    B, N = isa.shape
+    valid = torch.arange(N, device=isa.device)[None] < ns.long()[:, None]
+    inside = (isa >= 0) & (isa.long() < ns.long()[:, None])
+    assert bool((inside | ~valid).all()), f"{name}: ISA out of [0, n)"
+    hits = torch.zeros((B, N), dtype=torch.int32, device=isa.device)
+    hits.scatter_add_(1, torch.where(valid, isa, 0).long(), valid.int())
+    assert torch.equal(hits, valid.int()), f"{name}: ISA no permutation"
+
+
+def emit_errs(got, want, ns) -> dict:
+    """The emits' outputs against their plain versions' on what the
+    function defines: (bwt, primary) on the rows' lanes < n and whether
+    the kernel wrote 0 past n; (tokens, run_counts) on the counts and the
+    tokens below min(count, N / 4) and whether the kernel wrote 0 past
+    the count; _emit2's four outputs as both, raw below n."""
+    nb = ns.long()[:, None]
+    if len(got) == 4:  # (tokens, raw, run_counts, primary)
+        e = emit_errs((got[0], got[2]), (want[0], want[2]), ns)
+        rk, rp = got[1].view(torch.uint8), want[1].view(torch.uint8)
+        keep = torch.arange(rk.shape[1], device=rk.device)[None] < nb
+        e["raw"] = max_err_of(torch.where(keep, rk, 0),
+                              torch.where(keep, rp, 0))
+        e["primary"] = max_err_of(got[3], want[3])
+        return e
+    if got[0].dtype == torch.uint8:  # (bwt, primary)
+        keep = torch.arange(got[0].shape[1], device=ns.device)[None] < nb
+        return {"bwt": max_err_of(torch.where(keep, got[0], 0),
+                                  torch.where(keep, want[0], 0)),
+                "primary": max_err_of(got[1], want[1]),
+                "zeros_past_n": int(torch.where(keep, 0, got[0]).max())}
+    tk, tp = got[0].view(torch.int16), want[0].view(torch.int16)
+    tl = torch.arange(tk.shape[1], device=tk.device)[None]
+    upto = want[1].long().clamp(max=tk.shape[1])[:, None]
+    return {"tokens": max_err_of(torch.where(tl < upto, tk, 0),
+                                 torch.where(tl < upto, tp, 0)),
+            "run_counts": max_err_of(got[1], want[1]),
+            "zeros_past_count": int(torch.where(
+                tl < got[1].long()[:, None], 0, tk).abs().max())}
+
+
+def flatten_args(bwt, ns, cmaps, idxs) -> tuple:
+    """The arguments chain_payloads gives _flatten_words on a BWT batch
+    (bwt on the card; ns, cmaps, idxs on the host)."""
+    from lbzip2_tpu_torch.ops import chain
+
+    got = {}
+    real = chain._flatten_words
+
+    def spy(*a):
+        got["args"] = a
+        return real(*a)
+
+    chain._flatten_words = spy
+    try:
+        chain.chain_payloads(bwt, ns, cmaps, np.asarray(idxs, np.int32),
+                             np.zeros(len(ns), np.uint32))
+    finally:
+        chain._flatten_words = real
+    return got["args"]
+
+
+def flatten_edge_args(dev) -> dict:
+    """Synthetic _flatten_words inputs: rows of 0 words, base > 0, F past
+    the last row's end, one row."""
+    rng = np.random.default_rng(23)
+    words = torch.from_numpy(rng.integers(INT32_MIN, INT32_MAX, (6, 5000),
+                                          dtype=np.int32)).to(dev)
+    wc = np.array([5000, 0, 17, 0, 4096, 1], np.int32)
+    ends = torch.from_numpy(np.cumsum(wc).astype(np.int32)).to(dev)
+    one = torch.from_numpy(np.array([3000], np.int32)).to(dev)
+    return {"empty_rows_base_0": (words, ends, 20000, 0),
+            "base_700": (words, ends, 512, 700),
+            "base_past_end": (words, ends, 4096, 9000),
+            "one_row": (words[:1].contiguous(), one, 5000, 1)}
+
+
+def emits_phase(data: bytes, text: bytes, batch, dev) -> list:
+    """21. The BWT's emits (csrc/bwt2_emit.cu behind ops/bwt2.py::
+    _emit_bytes and _emit2), the MTF kernel's byte entry with its fused
+    compaction (csrc/mtf_ranks.cu behind ops/mtf_pallas.py::
+    mtf_ranks_bytes_rows) and the flat payload compaction
+    (csrc/flatten_words.cu behind ops/chain.py::_flatten_words) against
+    their plain versions, tolerance 0: the emits on the ISA of the resolve
+    loop of every case of phase 19 (text at (32, 901120), random,
+    16-value and runs, deep repeats, the (8, 8192) bucket with n = 0, 1,
+    2, N and F8's row) and on designed rows under random permutations
+    (emit_edge_rows), each ISA first checked to be a permutation on the
+    lanes < n; the MTF byte entry on the text batch, the emitted rows of
+    every case, rows of 1 and 256 used values and garbage past n; the
+    compaction on the arguments chain_payloads gives it on the text batch
+    and phase 19's cases and on synthetic ones.  Every wrapper once
+    under torch.cuda.set_sync_debug_mode("error"); CUDA-event times of
+    each kernel, its plain version and, where one call computes the
+    function, the library call, in turns; each kernel's device time.
+    Returns the four records."""
+    from lbzip2_tpu_torch.ops import bwt2, chain, mtf_pallas
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    errs = {"emit_bytes": 0, "emit_tokens": 0, "mtf_bytes": 0,
+            "flatten": 0}
+
+    def held(kind, name, e):
+        errs[kind] = max(errs[kind], max(e.values()) if isinstance(e, dict)
+                         else e)
+        log(f"{kind} kernel vs plain [{name}]: {json.dumps(e)}")
+        assert not (max(e.values()) if isinstance(e, dict) else e), \
+            f"{kind} kernel disagrees with plain on {name}"
+
+    emit_cases = {}
+    for name, host in bwt2_cases(data, text).items():
+        rows, ns, ms = (up(a) for a in host[:3])
+        emit_cases[name] = (rows, bwt2._resolve_loop(rows, ns), ns, ms)
+    rng = np.random.default_rng(24)
+    for name, (D, ns) in emit_edge_rows().items():
+        emit_cases[name] = tuple(up(a) for a in emit_inputs(D, ns, rng))
+    mtf_cases = {"text_32x901120": (batch[0], up(batch[2]), up(batch[1]))}
+    flat_cases = {}
+    for name, a in emit_cases.items():
+        assert_permutation(a[1], a[2], name)
+        got, want = bwt2._emit_bytes(*a), bwt2._emit_bytes_plain(*a)
+        torch.cuda.synchronize()
+        held("emit_bytes", name, emit_errs(got, want, a[2]))
+        got2, want2 = bwt2._emit2(*a), bwt2._emit2_plain(*a)
+        torch.cuda.synchronize()
+        held("emit_tokens", name, emit_errs(got2, want2, a[2]))
+        log(f"  {name}: run counts {got2[2].tolist()[:8]}.., rows over the "
+            f"token capacity {int((got2[2] > got2[0].shape[1] * 2).sum())}")
+        ns_h = a[2].cpu().numpy()
+        cm = np.zeros((len(ns_h), 256), np.uint8)
+        bwt_h = got[0].cpu().numpy()
+        for r in range(len(ns_h)):
+            cm[r, np.unique(bwt_h[r, :ns_h[r]])] = 1
+        mtf_cases.setdefault(name, (got[0], up(cm), a[2]))
+        if name != "text_32x901120" and not name.startswith(
+                ("edges", "full")):
+            kept = np.nonzero(ns_h > 0)[0]
+            flat_cases[name] = flatten_args(
+                got[0][up(kept)].contiguous(), ns_h[kept], cm[kept],
+                got[1].cpu().numpy()[kept])
+    # rows of 1 and 256 used values, garbage past n
+    g = np.random.default_rng(25)
+    B8 = g.integers(0, 256, (6, 65536), dtype=np.uint8)
+    B8[0] = 200
+    B8[2, :40000] = g.integers(0, 30, 40000) * 7
+    ns8 = np.array([65536, 65536, 40000, 0, 1, 33333], np.int32)
+    cm8 = np.zeros((6, 256), np.uint8)
+    for r in range(6):
+        cm8[r, np.unique(B8[r, :ns8[r]])] = 1
+    cm8[5] = 1  # every value marked used
+    mtf_cases["used_1_256_garbage_6x65536"] = (up(B8), up(cm8), up(ns8))
+    for name, a in mtf_cases.items():
+        got = mtf_pallas.mtf_ranks_bytes_rows(*a)
+        want = mtf_pallas.mtf_ranks_bytes_plain(*a)
+        torch.cuda.synchronize()
+        held("mtf_bytes", name, max_err_of(got, want))
+    bwt, ns_h, cmaps_h, primary = batch
+    flat_cases["text_32x901120"] = flatten_args(bwt, ns_h, cmaps_h,
+                                                primary.cpu().numpy())
+    flat_cases.update(flatten_edge_args(dev))
+    for name, a in flat_cases.items():
+        got = chain._flatten_words(*a)
+        want = chain._flatten_words_plain(*a)
+        torch.cuda.synchronize()
+        held("flatten", name, max_err_of(got, want))
+        log(f"  {name}: B {a[0].shape[0]}, W {a[0].shape[1]}, F {a[2]}, "
+            f"base {a[3] if len(a) > 3 else 0}, ends[-1] "
+            f"{int(a[1][-1])}")
+
+    # the text batch: no wrapper waits for the card (no host read)
+    ea = emit_cases["text_32x901120"]
+    ma = mtf_cases["text_32x901120"]
+    fa = flat_cases["text_32x901120"]
+    sbwt = bwt2._emit_bytes(*ea)[0]
+    lib = bwt2._emit_lib()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bwt2._emit_bytes(*ea)
+        bwt2._emit2(*ea)
+        mtf_pallas.mtf_ranks_bytes_rows(*ma)
+        chain._flatten_words(*fa)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the library calls: a scatter of the previous bytes by the ISA (the
+    # lanes >= n to themselves), a gather of the symbol table
+    blocks, isa, ns, ms = ea
+    B, N = blocks.shape
+    lane = torch.arange(N, device=dev)[None]
+    nb = ns.long()[:, None]
+    prev = torch.cat([torch.gather(blocks, 1, (nb - 1).clamp(min=0)),
+                      blocks[:, :N - 1]], dim=1)
+    dest = torch.where(lane < nb, isa.long(), lane)
+    cm = ma[1].int()
+    tab = torch.cumsum(cm, dim=1, dtype=torch.int32) - cm
+    wide = ma[0].long()
+    fns = {
+        "emit_bytes": (lambda: bwt2._emit_bytes(*ea),
+                       lambda: bwt2._emit_bytes_plain(*ea),
+                       lambda: torch.empty_like(prev).scatter_(1, dest,
+                                                               prev)),
+        "emit_tokens": (lambda: bwt2._tokens_cuda(lib, sbwt, ns),
+                        lambda: bwt2._tokens_plain(sbwt, ns), None),
+        "mtf_bytes": (lambda: mtf_pallas.mtf_ranks_bytes_rows(*ma),
+                      lambda: mtf_pallas.mtf_ranks_bytes_plain(*ma),
+                      lambda: torch.gather(tab, 1, wide)),
+        "flatten": (lambda: chain._flatten_words(*fa),
+                    lambda: chain._flatten_words_plain(*fa), None)}
+    turns = {k: {"kernel": [], "plain": [], "library": []} for k in fns}
+    for kernel in (False, True, True, False):
+        for k, (fk, fp, fl) in fns.items():
+            if kernel:
+                turns[k]["kernel"].append(cuda_ms(fk, 20))
+            else:
+                turns[k]["plain"].append(cuda_ms(fp, 1 if k == "mtf_bytes"
+                                                 else 3))
+                if fl is not None:
+                    turns[k]["library"].append(cuda_ms(fl, 20))
+    # the path the fused load replaced: the compaction, then the int32
+    # entry of the MTF kernel
+    unfused = cuda_ms(lambda: mtf_pallas.mtf_ranks_rows(
+        mtf_pallas._compact_syms(*ma[:2]).contiguous(), ma[2]), 10)
+    us = {k: device_us(f[0]) for k, f in fns.items()}
+    log(f"emits and load, (32, {WIDTH}) text batch, ms in turns: "
+        f"{json.dumps(turns)}; compaction then the int32 MTF entry "
+        f"{unfused:.4f} ms; device us {json.dumps(us)}")
+
+    def mean(x):
+        return sum(x) / len(x) if x else None
+
+    lanes = int(ns.clamp(0, N).sum())
+    fw, fends, fF = fa[0], fa[1], fa[2]
+    fbase = fa[3] if len(fa) > 3 else 0
+    copied = max(0, min(int(fends[-1]), fbase + fF) - fbase)
+    # bytes once in and once out; a lane (a slot) takes an operation
+    nbytes = {
+        # the ISA and the blocks below n, ns and ms in; the rows and the
+        # primaries out
+        "emit_bytes": 4 * lanes + lanes + 8 * B + B * N + 4 * B,
+        # the rows below n and ns in; the tokens and the counts out
+        "emit_tokens": lanes + 4 * B + 2 * B * (N // 4) + 4 * B,
+        # the bytes below n, the maps and ns in; the ranks out
+        "mtf_bytes": lanes + 256 * B + 4 * B + 4 * B * N,
+        # the words copied and the sums in; the slots out
+        "flatten": 4 * copied + 4 * fw.shape[0] + 4 * fF}
+    ops = {"emit_bytes": lanes, "emit_tokens": lanes, "mtf_bytes": lanes,
+           "flatten": fF}
+    log(f"emits and load: bytes {json.dumps(nbytes)}, operations "
+        f"{json.dumps(ops)}")
+    meta = {"emit_bytes": ("lbzip2_tpu_torch/csrc/bwt2_emit.cu",
+                           "lbzip2_tpu/ops/bwt2.py:218"),
+            "emit_tokens": ("lbzip2_tpu_torch/csrc/bwt2_emit.cu",
+                            "lbzip2_tpu/ops/bwt2.py:166"),
+            "mtf_bytes": ("lbzip2_tpu_torch/csrc/mtf_ranks.cu",
+                          "lbzip2_tpu/ops/chain.py:48"),
+            "flatten": ("lbzip2_tpu_torch/csrc/flatten_words.cu",
+                        "lbzip2_tpu/ops/chain.py:362")}
+    names = {"emit_bytes": "bwt2_emit_bytes", "emit_tokens":
+             "bwt2_emit_tokens", "mtf_bytes": "mtf_ranks_bytes",
+             "flatten": "flatten_words"}
+    records = []
+    for k in fns:
+        rec = {"name": names[k], "route": "cuda", "source": meta[k][0],
+               "replaces": meta[k][1], "launches": 0,
+               "max_abs_err": errs[k], "ms": mean(turns[k]["kernel"]),
+               "plain_ms": mean(turns[k]["plain"]), "turns_ms": turns[k],
+               "device_us": us[k], **bound(nbytes[k], ops[k])}
+        rec["library_ms"] = mean(turns[k]["library"])
+        records.append(rec)
+    records[2]["unfused_ms"] = unfused
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2792,6 +3206,8 @@ def main(argv=None) -> int:
     bitpack_record["smoke_launches"] = bitpack.launches
     seed_record, pass_record = bwt2_phase(data, text, dev)
     rle2_record, pack_record = entropy_phase(data, text, text_batch, dev)
+    emit_record, tokens_record, mtf_bytes_record, flatten_record = \
+        emits_phase(data, text, text_batch, dev)
     if args.measure:
         op_table(text, text_batch, dev)
     del text_batch, text_h, text_args
@@ -2818,10 +3234,16 @@ def main(argv=None) -> int:
     crc.launches = bitpack.launches = 0
     bwt2.launches = bwt2.pass_launches = 0
     rle2.launches = chain.pack_launches = 0
+    bwt2.emit_launches = bwt2.token_launches = 0
+    mtf_pallas.bytes_launches = chain.flatten_launches = 0
     t0 = time.time()
     with plain_twins_counted(off_path):
         out = encoder.compress(data, 9, device=dev)
     dt = time.time() - t0
+    emit_record["launches"] = bwt2.emit_launches
+    mtf_bytes_record["launches"] = mtf_pallas.bytes_launches
+    flatten_record["launches"] = chain.flatten_launches
+    chain_token_launches = bwt2.token_launches
     launches, mstep_launches, em_launches = \
         mtf_pallas.launches, huffenc.launches, huffenc.em_launches
     seed_record["launches"] = bwt2.launches - bwt2.pass_launches
@@ -2840,7 +3262,9 @@ def main(argv=None) -> int:
         f"{json.dumps(off_path)}, BWT seeds {seed_record['launches']} and "
         f"passes {pass_record['launches']} on the kernels, RLE2 "
         f"{rle2_record['launches']} and packing {pack_record['launches']} "
-        f"launches")
+        f"launches, emit {emit_record['launches']}, MTF byte entry "
+        f"{mtf_bytes_record['launches']}, flat compaction "
+        f"{flatten_record['launches']}, token emit {chain_token_launches}")
 
     def log_batches(stats):
         for i, tele in enumerate(stats["batch_trace"]):
@@ -2876,6 +3300,11 @@ def main(argv=None) -> int:
         "main path never launched the BWT kernels"
     assert rle2_record["launches"] == pack_record["launches"] == \
         em_launches, "a chain batch missed the RLE2 or packing kernel"
+    assert mtf_bytes_record["launches"] == em_launches and \
+        emit_record["launches"] >= em_launches and \
+        flatten_record["launches"] > 0 and chain_token_launches == 0, \
+        "a chain batch missed the emit, the MTF byte entry or the flat " \
+        "compaction, or ran the token emit"
     alive = [t.name for t in threading.enumerate()
              if t.name.startswith("lbz2-")]
     assert not alive, f"engine threads outlived compress: {alive}"
@@ -2908,6 +3337,8 @@ def main(argv=None) -> int:
                 f"{json.dumps(r['batches'])}")
 
     tok = token_phase(data, eligible, ref)
+    tokens_record["launches"] = tok["calls"]["emit_tokens"]
+    tokens_record["emit_bytes_launches"] = tok["calls"]["emit_bytes"]
     log(f"compress warm, {len(data)} bytes: token mode {tok['s']:.3f} s = "
         f"{tok['mbps']:.3f} MB/s vs chain mode {dt:.3f} s = "
         f"{len(data) / dt / 1e6:.3f} MB/s")
@@ -2936,7 +3367,9 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [record, sweep_record, huff_record,
                                   ibwt_record, lengths_record, em_record,
                                   crc_record, bitpack_record, seed_record,
-                                  pass_record, rle2_record, pack_record]}))
+                                  pass_record, rle2_record, pack_record,
+                                  emit_record, tokens_record,
+                                  mtf_bytes_record, flatten_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

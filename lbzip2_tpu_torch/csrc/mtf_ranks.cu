@@ -32,6 +32,14 @@
 //      ends the walk.  Work grows with the rank: text after a BWT hits
 //      level 0 nearly always.
 //
+// The byte entry (lbz2t_mtf_ranks_bytes) takes the BWT rows as uint8 and
+// the row's used-byte map: it fuses lbzip2_tpu/ops/chain.py::_compact_syms
+// (:48), the XLA op that maps each byte to the number of used byte values
+// below it, into both launches that read the symbols.  One warp of each
+// CTA builds the row's 256-entry table tab[v] = #used bytes below v from
+// cmaps by a scan in shared memory, and the load maps each byte through
+// it: the (B, N) int32 symbols never reach device memory.
+//
 // What bounds it on the card: instruction throughput.  A symbol that
 // is no run continuation costs some 20 warp instructions at level 0 and
 // 6 more a level (measured: 0.5 ms of rank_pass for 28.8 M text
@@ -55,19 +63,65 @@ constexpr int kSlabs = 4;  // parts of a row's chunks in carry_scan
 constexpr int kAhead = 4;  // 32-symbol loads in flight a warp in chunk_last
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void chunk_last(const int* __restrict__ syms,
+// The row's symbol table, by warp 0 of the CTA: tab[v] = the used byte
+// values below v (cmaps[v] != 0 marks v used), lane l summing bytes
+// 8 l .. 8 l + 7 and a warp scan giving each lane the ones below them.
+// The caller synchronises the CTA before the table is read.
+__device__ __forceinline__ void build_table(
+    const unsigned char* __restrict__ cmap, int* tab) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int c[8], sum = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    c[k] = cmap[8 * lane + k];
+    sum += c[k];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  int below = incl - sum;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    tab[8 * lane + k] = below;
+    below += c[k];
+  }
+}
+
+// A row's symbols as the kernels read them: int32 symbols masked to the
+// alphabet, or bytes mapped through the row's table in shared memory.
+template <typename T>
+struct Syms {
+  const T* row;
+  const int* tab;
+  __device__ __forceinline__ int operator()(int i) const {
+    if constexpr (sizeof(T) == 1)
+      return tab[row[i]] & (kAlpha - 1);
+    else
+      return row[i] & (kAlpha - 1);
+  }
+};
+
+template <typename T>
+__global__ void chunk_last(const T* __restrict__ syms,
+                           const unsigned char* __restrict__ cmaps,
                            const int* __restrict__ ns,
                            int* __restrict__ lastc, int N, int chunk,
                            int nch) {
   __shared__ int sl[kAlpha];
+  __shared__ int tab[kAlpha];
   const int c = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   sl[threadIdx.x] = -1;  // blockDim.x == kAlpha
+  if constexpr (sizeof(T) == 1) build_table(cmaps + (size_t)b * kAlpha, tab);
   __syncthreads();
   const int n = max(0, min(ns[b], N));
   const int lo = c * chunk;
   const int hi = min(lo + chunk, n);
-  const int* row = syms + (size_t)b * N;
+  const Syms<T> row{syms + (size_t)b * N, tab};
   // a warp takes kAhead loads of 32 consecutive positions at a time;
   // inside a run only its last position (or the load's) can be the
   // chunk's last
@@ -77,7 +131,7 @@ __global__ void chunk_last(const int* __restrict__ syms,
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
       const int i = base + 32 * u + lane;
-      s[u] = i < hi ? row[i] & (kAlpha - 1) : -1;
+      s[u] = i < hi ? row(i) : -1;
     }
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
@@ -136,20 +190,27 @@ __device__ __forceinline__ int descend(int (&L)[8], int s, int carry,
     return 0;  // not reached: the list holds every symbol
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
-    rank_pass(const int* __restrict__ syms, const int* __restrict__ ns,
-              const int* __restrict__ lastc, int* __restrict__ out, int N,
-              int chunk, int nch) {
+    rank_pass(const T* __restrict__ syms,
+              const unsigned char* __restrict__ cmaps,
+              const int* __restrict__ ns, const int* __restrict__ lastc,
+              int* __restrict__ out, int N, int chunk, int nch) {
   __shared__ __align__(16) int sm[kWarps][kAlpha];
+  __shared__ int tab[kAlpha];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int c = blockIdx.x * kWarps + wid;
   const int b = blockIdx.y;
+  if constexpr (sizeof(T) == 1) {
+    build_table(cmaps + (size_t)b * kAlpha, tab);
+    __syncthreads();
+  }
   if (c >= nch) return;  // whole warp leaves together
   const int n = max(0, min(ns[b], N));
   const int lo = c * chunk;
   const int end = min(lo + chunk, N);
   const int lim = min(end, n);  // [lo, lim) ranked, [lim, end) zeroed
-  const int* row = syms + (size_t)b * N;
+  const Syms<T> row{syms + (size_t)b * N, tab};
   int* orow = out + (size_t)b * N;
   if (lo >= lim) {
     for (int i = lo + lane; i < end; i += 32) orow[i] = 0;
@@ -189,11 +250,11 @@ __global__ void __launch_bounds__(32 * kWarps)
 
   const int behind = (lane + 31) & 31;  // a rotate by one lane reads it
   int tail = -1;                        // the symbol before this load
-  int ahead = lo + lane < lim ? row[lo + lane] & (kAlpha - 1) : -1;
+  int ahead = lo + lane < lim ? row(lo + lane) : -1;
   for (int base = lo; base < end; base += 32) {
     const int i = base + lane;
     const int sym = ahead;  // -1 at lanes >= lim
-    ahead = i + 32 < lim ? row[i + 32] & (kAlpha - 1) : -1;
+    ahead = i + 32 < lim ? row(i + 32) : -1;
     int prev = __shfl_up_sync(kFull, sym, 1);
     if (lane == 0) prev = tail;
     tail = __shfl_sync(kFull, sym, 31);
@@ -211,6 +272,20 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
+template <typename T>
+int launch(const T* syms, const unsigned char* cmaps, const int* ns,
+           int* out, int* lastc, int B, int N, int chunk,
+           cudaStream_t s) {
+  if (B <= 0 || N <= 0 || chunk <= 0) return (int)cudaGetLastError();
+  const int nch = (N + chunk - 1) / chunk;
+  chunk_last<T><<<dim3(nch, B), kAlpha, 0, s>>>(syms, cmaps, ns, lastc, N,
+                                                chunk, nch);
+  carry_scan<<<B, kSlabs * kAlpha, 0, s>>>(lastc, nch);
+  rank_pass<T><<<dim3((nch + kWarps - 1) / kWarps, B), 32 * kWarps, 0, s>>>(
+      syms, cmaps, ns, lastc, out, N, chunk, nch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // syms (B, N) int32 in [0, 256), ns (B,) int32, out (B, N) int32,
@@ -218,15 +293,20 @@ __global__ void __launch_bounds__(32 * kWarps)
 extern "C" int lbz2t_mtf_ranks(const void* syms, const void* ns, void* out,
                                void* lastc, int B, int N, int chunk,
                                void* stream) {
-  if (B <= 0 || N <= 0 || chunk <= 0) return (int)cudaGetLastError();
-  const int nch = (N + chunk - 1) / chunk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sy = static_cast<const int*>(syms);
-  const int* nn = static_cast<const int*>(ns);
-  int* lc = static_cast<int*>(lastc);
-  chunk_last<<<dim3(nch, B), kAlpha, 0, s>>>(sy, nn, lc, N, chunk, nch);
-  carry_scan<<<B, kSlabs * kAlpha, 0, s>>>(lc, nch);
-  rank_pass<<<dim3((nch + kWarps - 1) / kWarps, B), 32 * kWarps, 0, s>>>(
-      sy, nn, lc, static_cast<int*>(out), N, chunk, nch);
-  return (int)cudaGetLastError();
+  return launch(static_cast<const int*>(syms), nullptr,
+                static_cast<const int*>(ns), static_cast<int*>(out),
+                static_cast<int*>(lastc), B, N, chunk,
+                static_cast<cudaStream_t>(stream));
+}
+
+// bwt (B, N) uint8 and cmaps (B, 256) uint8 (the row's used bytes), ns
+// (B,) int32; out and lastc as lbz2t_mtf_ranks; all device pointers.
+extern "C" int lbz2t_mtf_ranks_bytes(const void* bwt, const void* cmaps,
+                                     const void* ns, void* out, void* lastc,
+                                     int B, int N, int chunk, void* stream) {
+  return launch(static_cast<const unsigned char*>(bwt),
+                static_cast<const unsigned char*>(cmaps),
+                static_cast<const int*>(ns), static_cast<int*>(out),
+                static_cast<int*>(lastc), B, N, chunk,
+                static_cast<cudaStream_t>(stream));
 }

@@ -26,6 +26,12 @@ versions, ``_seed16_plain`` and ``_pass8_plain``, which also fill the
 pad lanes as JAX does.  The resolve loop queues its passes on the card
 and reads nothing there.
 
+The emits run ``csrc/bwt2_emit.cu`` for a CUDA tensor: ``_emit_bytes``
+scatters each lane's previous byte to its ISA (a permutation of [0, n)
+on the lanes < n once a pass has run), ``_emit2`` then counts and
+writes the run tokens over tiles of 4096 lanes.  For a CPU tensor they
+run JAX's sort formulation (``_emit_bytes_plain``, ``_emit2_plain``).
+
 The plain multi-key stable sorts are ``torch.sort(stable=True)``
 passes over keys packed two to an int64, ``(signed hi << 32) +
 unsigned lo``, taken from the last key pair to the first (LSD order).
@@ -58,6 +64,8 @@ SEG_BLOCKS = (256, 1024, 4096)
 
 launches = 0       # seeds and passes that launched the CUDA kernels
 pass_launches = 0  # of those, the passes (_pass8, and the loop's on the card)
+emit_launches = 0   # launches of emit_bytes (_emit_bytes, _emit2)
+token_launches = 0  # launches of emit_tokens (_emit2)
 _held = threading.local()  # a thread's kernel scratch, per device
 
 
@@ -382,17 +390,16 @@ def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
     return out, cnt
 
 
-def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
-                ms: torch.Tensor):
-    """BWT rows and primary index: (bwt (B, N) uint8, primary (B,)
-    int32).  The previous byte of position 0 is the row's last byte;
-    primary = ISA[(n - m) mod n].  Lanes >= n hold pad bytes in no
-    particular order (JAX sorts them unstably).  Chain mode keeps the
-    rows on the device."""
+def _emit_bytes_plain(blocks: torch.Tensor, ISA: torch.Tensor,
+                      ns: torch.Tensor, ms: torch.Tensor):
+    """The plain version of ``_emit_bytes``, JAX's formulation: a stable
+    sort of the lanes by their ISA (lanes >= n last) with the previous
+    byte as payload.  Defined on any ISA; lanes >= n hold pad bytes in
+    no particular order (JAX sorts them unstably)."""
     B, N = blocks.shape
     idxB = _iota(B, N, blocks.device)
     nB = ns[:, None]
-    last = torch.gather(blocks, 1, (nB - 1).long())
+    last = torch.gather(blocks, 1, (nB - 1).clamp(min=0).long())
     prev = torch.cat([last, blocks[:, :N - 1]], dim=1)
     key = torch.where(idxB < nB, ISA, _INF)
     _, idx = torch.sort(key, dim=1, stable=True)
@@ -402,24 +409,91 @@ def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
     return sbwt, primary
 
 
-def _emit2(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
-           ms: torch.Tensor):
-    """Token-mode output (lbzip2_tpu/ops/bwt2.py::_emit2): (tokens
-    (B, N//8) int32, raw (B, N//4) int32, run_counts (B,) int32,
-    primary (B,) int32).
+def _emit_lib():
+    lib = _build.load("bwt2_emit")
+    if lib.lbz2t_emit_bytes.argtypes is None:
+        lib.lbz2t_emit_bytes.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.lbz2t_emit_tokens_scratch_ints.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_emit_tokens_scratch_ints.restype = ctypes.c_longlong
+        lib.lbz2t_emit_tokens.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lbz2t_emit_bytes.restype = lib.lbz2t_emit_tokens.restype = \
+            ctypes.c_int
+    return lib
 
-    A token is the u16 ``byte << 8 | len`` of one run, runs split so
-    none exceeds 255 (a split every 255 bytes from the run's start);
-    two tokens pair little-endian into an int32 word, N//4 tokens per
-    row at most.  raw holds the BWT bytes four to a little-endian word.
-    Tokens past ``run_counts`` and raw bytes past n are unspecified, as
-    in JAX.  The words are assembled from bytes, so no u16 shift is
-    needed."""
+
+def _emit_checked(blocks, ISA, ns, ms):
+    """Raise unless the emit kernels take these tensors; then the built
+    library (it raises without nvcc, before anything is queued)."""
+    dev = blocks.device
+    if dev.type != "cuda" or any(a.device != dev for a in (ISA, ns, ms)):
+        raise ValueError("the emit kernels need blocks, ISA, ns and ms on "
+                         "one CUDA device")
+    if blocks.dtype != torch.uint8 or any(
+            a.dtype != torch.int32 for a in (ISA, ns, ms)):
+        raise TypeError("blocks must be uint8, ISA, ns and ms int32")
+    B = blocks.shape[0]
+    if blocks.dim() != 2 or ISA.shape != blocks.shape or \
+            ns.shape != (B,) or ms.shape != (B,):
+        raise ValueError(f"bad shapes {tuple(blocks.shape)} / "
+                         f"{tuple(ISA.shape)} / {tuple(ns.shape)} / "
+                         f"{tuple(ms.shape)}")
+    if not all(a.is_contiguous() for a in (blocks, ISA, ns, ms)):
+        raise ValueError("the emit kernels' inputs must be contiguous")
+    return _emit_lib()
+
+
+def _emit_bytes_cuda(lib, blocks, ISA, ns, ms):
+    """Launch ``emit_bytes`` on the current stream (nothing read on the
+    host): (bwt (B, N) uint8, primary (B,) int32)."""
+    global emit_launches
     B, N = blocks.shape
-    sbwt, primary = _emit_bytes(blocks, ISA, ns, ms)
-    raw = sbwt.contiguous().view(torch.int32)
+    dev = blocks.device
+    with torch.cuda.device(dev):  # the C side launches on it
+        out = torch.empty((B, N), dtype=torch.uint8, device=dev)
+        primary = torch.zeros(B, dtype=torch.int32, device=dev)
+        if B == 0 or N == 0:
+            return out, primary
+        err = lib.lbz2t_emit_bytes(
+            blocks.data_ptr(), ISA.data_ptr(), ns.data_ptr(), ms.data_ptr(),
+            out.data_ptr(), primary.data_ptr(), B, N,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bwt2 emit_bytes launch failed: cudaError "
+                               f"{err}")
+    emit_launches += 1
+    return out, primary
 
-    idxB = _iota(B, N, blocks.device)
+
+def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
+                ms: torch.Tensor):
+    """BWT rows and primary index: (bwt (B, N) uint8, primary (B,)
+    int32).  The previous byte of position 0 is the row's last byte;
+    primary = ISA[(n - m) mod n].  Chain mode keeps the rows on the
+    device.
+
+    For a CUDA tensor the kernel ``emit_bytes`` of
+    ``csrc/bwt2_emit.cu``: its precondition is that the ISA is a
+    permutation of [0, n) on the lanes < n, as every ISA the resolve
+    loop hands over is (it comes after at least one pass); then the
+    emit is the scatter bwt[ISA[p]] = prev[p], and lanes >= n are 0.
+    For a CPU tensor the plain version (``_emit_bytes_plain``)."""
+    if blocks.device.type == "cpu":
+        return _emit_bytes_plain(blocks, ISA, ns, ms)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    lib = _emit_checked(blocks, ISA, ns, ms)
+    return _emit_bytes_cuda(lib, blocks, ISA, ns, ms)
+
+
+def _tokens_plain(sbwt: torch.Tensor, ns: torch.Tensor):
+    """The plain version of the token kernels: (tokens (B, N//8) int32,
+    run_counts (B,) int32) of the BWT rows ``sbwt`` (B, N) uint8, by a
+    cummax for each lane's run start and a stable sort that compacts the
+    token starts to the front of the row."""
+    B, N = sbwt.shape
+    idxB = _iota(B, N, sbwt.device)
     nB = ns[:, None]
     valid = idxB < nB
     change = torch.ones_like(valid)
@@ -438,8 +512,72 @@ def _emit2(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
     length = length.clamp(0, 255).to(torch.uint8)  # dead lanes -> 0
     TOK = N // 4  # token capacity: mean run >= 4 fits
     tok = torch.stack([length[:, :TOK], sbyte[:, :TOK]], dim=2)
-    tokens = tok.reshape(B, 2 * TOK).view(torch.int32)
-    return tokens, raw, run_counts, primary
+    return tok.reshape(B, 2 * TOK).view(torch.int32), run_counts
+
+
+def _tokens_cuda(lib, sbwt: torch.Tensor, ns: torch.Tensor):
+    """Launch ``emit_tokens`` on the current stream (nothing read on the
+    host): (tokens (B, N//8) int32, run_counts (B,) int32) of the rows
+    ``sbwt`` (B, N) uint8, N a multiple of 8; tokens past the count are
+    0."""
+    global token_launches
+    B, N = sbwt.shape
+    if N % 8:
+        raise ValueError(f"rows of {N} lanes: the token kernels take a "
+                         f"multiple of 8")
+    dev = sbwt.device
+    with torch.cuda.device(dev):  # the C side launches on it
+        tokens = torch.empty((B, N // 8), dtype=torch.int32, device=dev)
+        counts = torch.zeros(B, dtype=torch.int32, device=dev)
+        if B == 0 or N == 0:
+            return tokens, counts
+        scratch = torch.empty(lib.lbz2t_emit_tokens_scratch_ints(B, N),
+                              dtype=torch.int32, device=dev)
+        err = lib.lbz2t_emit_tokens(
+            sbwt.data_ptr(), ns.data_ptr(), tokens.data_ptr(),
+            counts.data_ptr(), scratch.data_ptr(), B, N, N // 4,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bwt2 emit_tokens launch failed: "
+                               f"cudaError {err}")
+    token_launches += 1
+    return tokens, counts
+
+
+def _emit2_plain(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
+                 ms: torch.Tensor):
+    """The plain version of ``_emit2``: ``_emit_bytes_plain``, then
+    ``_tokens_plain``."""
+    sbwt, primary = _emit_bytes_plain(blocks, ISA, ns, ms)
+    tokens, run_counts = _tokens_plain(sbwt, ns)
+    return tokens, sbwt.contiguous().view(torch.int32), run_counts, primary
+
+
+def _emit2(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
+           ms: torch.Tensor):
+    """Token-mode output (lbzip2_tpu/ops/bwt2.py::_emit2): (tokens
+    (B, N//8) int32, raw (B, N//4) int32, run_counts (B,) int32,
+    primary (B,) int32).
+
+    A token is the u16 ``byte << 8 | len`` of one run, runs split so
+    none exceeds 255 (a split every 255 bytes from the run's start);
+    two tokens pair little-endian into an int32 word, N//4 tokens per
+    row at most.  raw holds the BWT bytes four to a little-endian word.
+    Tokens past ``run_counts`` and raw bytes past n are unspecified, as
+    in JAX (the kernels write 0 there).
+
+    For a CUDA tensor the kernels of ``csrc/bwt2_emit.cu``:
+    ``emit_bytes`` (same precondition as ``_emit_bytes``), then
+    ``emit_tokens`` on the bytes it wrote (rows of a multiple of 8
+    lanes).  For a CPU tensor the plain version (``_emit2_plain``)."""
+    if blocks.device.type == "cpu":
+        return _emit2_plain(blocks, ISA, ns, ms)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    lib = _emit_checked(blocks, ISA, ns, ms)
+    sbwt, primary = _emit_bytes_cuda(lib, blocks, ISA, ns, ms)
+    tokens, run_counts = _tokens_cuda(lib, sbwt, ns)
+    return tokens, sbwt.view(torch.int32), run_counts, primary
 
 
 def loop_passes(N: int) -> int:

@@ -23,7 +23,8 @@ from lbzip2_tpu_torch.interop import M32
 from lbzip2_tpu_torch.ops.huffenc import em_chain_rows
 from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
                                           num_trees_for)
-from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
+from lbzip2_tpu_torch.ops.mtf_pallas import (_compact_syms,  # noqa: F401
+                                              mtf_ranks_bytes_rows)
 from lbzip2_tpu_torch.ops.rle2 import WIDTH, _rle2_batch, rle2_hist_rows
 from lbzip2_tpu_torch.parallel.sharding import run_shards
 
@@ -36,14 +37,6 @@ FLAT_CHUNK = 524_288
 # row fits it (lbzip2_tpu/ops/chain.py:400-404).
 PACK_W = 160768
 PACK_W_SMALL = 80384
-
-
-def _compact_syms(bwt: torch.Tensor, cmaps: torch.Tensor) -> torch.Tensor:
-    """Raw BWT bytes -> compacted symbol ids (B, N) int32: the number of
-    used byte values below each byte, from a per-row 256-entry table."""
-    cm = cmaps.int()
-    tab = torch.cumsum(cm, dim=1, dtype=torch.int32) - cm
-    return torch.gather(tab, 1, bwt.long())
 
 
 def _group_hist(mtfv: torch.Tensor, nm: torch.Tensor,
@@ -73,10 +66,11 @@ def _chain_mtf2(bwt: torch.Tensor, ns: torch.Tensor, cmaps: torch.Tensor):
     (``ops/huffenc.em_chain_rows``) and one kernel gives the RLE2 values
     with their flat histogram (``ops/rle2.py::rle2_hist_rows``), so the
     per-group tensor, five times the symbols it is made from, is never
-    built there."""
-    syms = _compact_syms(bwt, cmaps)
+    built there.  The MTF kernel reads the bytes and maps them to the
+    compacted symbols itself (``mtf_ranks_bytes_rows``); on the CPU that
+    is ``_compact_syms``, then the plain MTF."""
     ninuse = cmaps.int().sum(1, dtype=torch.int32)
-    ranks = mtf_ranks_rows(syms, ns)
+    ranks = mtf_ranks_bytes_rows(bwt, cmaps, ns)
     if ranks.device.type == "cuda":
         mtfv, nm, hist = rle2_hist_rows(ranks, ns, ninuse)
         ngroups = ((nm + GROUP_SIZE - 1) // GROUP_SIZE).int()
@@ -272,11 +266,10 @@ def _pack_groups(mtfv: torch.Tensor, nm: torch.Tensor,
     raise ValueError(f"unsupported device {mtfv.device}")
 
 
-def _flatten_words(words: torch.Tensor, ends: torch.Tensor, F: int,
-                   base: int = 0) -> torch.Tensor:
-    """Compact per-row payload words into flat slots [base, base + F):
-    slot f belongs to row searchsorted(ends, f, right=True).  ends: (B,)
-    inclusive prefix sum of per-row word counts (int32)."""
+def _flatten_words_plain(words: torch.Tensor, ends: torch.Tensor, F: int,
+                         base: int = 0) -> torch.Tensor:
+    """The plain version of ``_flatten_words``: a searchsorted, then a
+    gather."""
     B, W = words.shape
     f = torch.arange(F, dtype=torch.int32, device=words.device) + base
     r = torch.searchsorted(ends, f, right=True)
@@ -284,6 +277,63 @@ def _flatten_words(words: torch.Tensor, ends: torch.Tensor, F: int,
     starts = torch.cat([torch.zeros_like(ends[:1]), ends[:-1]])
     idx = (f - starts[rc]).clamp(0, W - 1).long()
     return torch.where(r < B, words[rc, idx], 0)
+
+
+flatten_launches = 0  # CUDA kernel launches made by _flatten_words
+
+
+def _flatten_cuda(words: torch.Tensor, ends: torch.Tensor, F: int,
+                  base: int) -> torch.Tensor:
+    """Launch the kernel of ``csrc/flatten_words.cu`` on the current
+    stream (no synchronize, nothing read on the host)."""
+    global flatten_launches
+    dev = words.device
+    if dev.type != "cuda" or ends.device != dev:
+        raise ValueError("_flatten_cuda needs words and ends on one CUDA "
+                         "device")
+    if words.dtype != torch.int32 or ends.dtype != torch.int32:
+        raise TypeError("words and ends must be int32")
+    if words.dim() != 2 or ends.shape != (words.shape[0],):
+        raise ValueError(f"bad shapes {tuple(words.shape)} / "
+                         f"{tuple(ends.shape)}")
+    if not (words.is_contiguous() and ends.is_contiguous()):
+        raise ValueError("words and ends must be contiguous")
+    if F < 0 or base < 0 or F + base >= 2 ** 31:
+        raise ValueError(f"bad flat slots [{base}, {base} + {F})")
+    lib = _build.load("flatten_words")
+    if lib.lbz2t_flatten_words.argtypes is None:
+        lib.lbz2t_flatten_words.argtypes = [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.lbz2t_flatten_words.restype = ctypes.c_int
+    B, W = words.shape
+    with torch.cuda.device(dev):  # the C side launches on it
+        if B == 0 or W == 0 or F == 0:
+            return torch.zeros(F, dtype=torch.int32, device=dev)
+        out = torch.empty(F, dtype=torch.int32, device=dev)
+        err = lib.lbz2t_flatten_words(
+            words.data_ptr(), ends.data_ptr(), out.data_ptr(), B, W, F,
+            base, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flatten_words kernel launch failed: "
+                               f"cudaError {err}")
+    flatten_launches += 1
+    return out
+
+
+def _flatten_words(words: torch.Tensor, ends: torch.Tensor, F: int,
+                   base: int = 0) -> torch.Tensor:
+    """Compact per-row payload words into flat slots [base, base + F):
+    slot f belongs to row searchsorted(ends, f, right=True), word
+    f - start of that row (clamped to the row's width); slots past the
+    last row are 0.  ends: (B,) inclusive prefix sum of per-row word
+    counts (int32).  The kernel of ``csrc/flatten_words.cu`` for CUDA
+    tensors (int32 words, at most 12288 rows), the plain version for CPU
+    tensors."""
+    if words.device.type == "cuda":
+        return _flatten_cuda(words, ends, F, base)
+    if words.device.type == "cpu":
+        return _flatten_words_plain(words, ends, F, base)
+    raise ValueError(f"unsupported device {words.device}")
 
 
 def _flatten_download(words: torch.Tensor, ends_dev: torch.Tensor,

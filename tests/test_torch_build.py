@@ -80,9 +80,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
-KERNELS = ["bitpack", "bwt2_sort", "code_lengths", "crc32", "em_chain",
-           "huffdec", "ibwt", "mtf_ranks", "pack_groups", "rle2",
-           "sort_sweeps"]
+KERNELS = ["bitpack", "bwt2_emit", "bwt2_sort", "code_lengths", "crc32",
+           "em_chain", "flatten_words", "huffdec", "ibwt", "mtf_ranks",
+           "pack_groups", "rle2", "sort_sweeps"]
 
 
 def test_every_kernel_source_is_found():
@@ -90,9 +90,10 @@ def test_every_kernel_source_is_found():
 
 
 def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
-    """The repository's eleven sources, the CRC, the bit packer, the
-    BWT's suffix sort, the RLE2 and the group packing among them, each
-    built by a compiler process of its own."""
+    """The repository's thirteen sources, the CRC, the bit packer, the
+    BWT's suffix sort and emits, the RLE2, the group packing and the flat
+    compaction among them, each built by a compiler process of its
+    own."""
     import shutil
 
     csrc = tmp_path / "csrc"
@@ -118,7 +119,8 @@ def test_real_sources_get_one_nvcc_each(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["crc32", "bitpack", "bwt2_sort",
-                                  "rle2", "pack_groups"])
+                                  "rle2", "pack_groups", "bwt2_emit",
+                                  "flatten_words"])
 def test_missing_toolchain_raises_for_new_kernels(name, tmp_path,
                                                   monkeypatch):
     def no_nvcc():

@@ -49,7 +49,7 @@ def test_every_module_is_covered():
                  "codec/decoder.py", "codec/encoder.py", "cli.py",
                  "parallel/sharding.py", "parallel/multihost.py",
                  "entry.py", "ops/crc.py", "ops/bitpack.py", "ops/mtf.py",
-                 "ops/rle2.py"):
+                 "ops/rle2.py", "codec/rle2.py"):
         assert f"lbzip2_tpu_torch/{must}" in names
 
 
