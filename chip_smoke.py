@@ -138,11 +138,15 @@ Phases (any failure exits non-zero before the last line is printed):
              of its rows, 1 to 6 trees in one batch, short rows that
              settle beside text rows that still move, cluster_factor 1
              and 2, rows of one group, random lengths up to 30 (costs
-             past the 1023 of a 10-bit lane), alphabets of 2 and 258;
-             then the whole entropy chain of the text batch
+             past the 1023 of a 10-bit lane), alphabets of 2 and 258,
+             rows whose live groups end on a share of the E-step's
+             persistent CTAs, one group past it and one short of it;
+             the loop once under torch.cuda.set_sync_debug_mode("error")
+             (no host read); then the whole entropy chain of the text batch
              (chain_payloads) with the kernels and with the plain loop
              in their place, the same payloads, with the stage times of
-             both; CUDA-event times of the loop.  (It runs right after
+             both; CUDA-event times of the loop and each kernel's
+             device time, a loop and a step.  (It runs right after
              phase 3, on that phase's BWT batch.)  With --measure also
              the device time of each op of the batch through bwt2_bytes
              and chain_payloads.
@@ -233,7 +237,9 @@ Phases (any failure exits non-zero before the last line is printed):
              every case of phase 19 and on designed rows under random
              permutations (runs of 254 to 765 bytes across the token
              tiles' edges, one run of a row, runs that touch n, counts
-             past N / 4, n = 0, 1 and 4097, full-width rows), each ISA
+             past N / 4, n = 0, 1 and 4097, full-width rows, and n = 0,
+             1, 2, S - 1, S, S + 1, 2S + 17 and N at the emit's buckets of
+             S = 16384 destinations, rows off 16-byte alignment), each ISA
              first asserted a permutation on the lanes < n; the byte
              entry on the text batch, every emitted batch and rows of 1
              and 256 used values with garbage past n; the compaction on
@@ -968,6 +974,8 @@ def code_lengths_phase(text_args, dev):
 def em_cases(text_h, dev) -> dict:
     """name -> (inputs of em_chain_rows on the card, cluster_factor).
     text_h: (mtfv, nm, ninuse) of the 32-row text batch on the host."""
+    from lbzip2_tpu_torch.ops import huffenc
+
     mtfv, nm, ninuse = text_h
     NP = mtfv.shape[1]
     rng = np.random.default_rng(7)
@@ -993,6 +1001,12 @@ def em_cases(text_h, dev) -> dict:
 
     whole = np.arange(8)
     full = int(nm.max())
+    # the E-step's persistent CTAs: P a row, each an equal share of the
+    # row's live groups; rows whose groups end on a share's edge (whole
+    # or with a partial last group), one group past it, one short of
+    # it, and a full text row (shares of more than one tile)
+    P = huffenc.estep_ctas(6, (NP + 49) // 50)
+    edge = 50 * P * 3
     cases = {
         "text_32_rows": (em_case(mtfv, nm, ninuse, dev), 8),
         "rows_1": (em_case(mtfv[:1], nm[:1], ninuse[:1], dev), 8),
@@ -1014,6 +1028,8 @@ def em_cases(text_h, dev) -> dict:
             (100, 0), (300_000, 256)]), dev), 8),
         "as_2_and_258_lengths_to_30": (em_case(*synth([
             (1, 0), (NP, 256), (700_001, 256), (2, 0)]), dev, "random30"), 8),
+        "shares_straddle": (em_case(*cut(whole[:6], [
+            edge, edge - 49, edge + 1, edge + 50, edge - 50, full]), dev), 8),
     }
     return cases
 
@@ -1044,6 +1060,19 @@ def em_phase(text_h, batch, dev):
         assert not any(errs), f"the EM kernels disagree with plain: {name}"
     assert iters_of["cluster_factor_1"] == 1 and \
         iters_of["cluster_factor_2"] == 2, iters_of
+    args, cf = cases["shares_straddle"]
+    P = huffenc.estep_ctas(6, (args[0].shape[1] + 49) // 50)
+    groups = ((args[1] + 49) // 50).tolist()
+    log(f"shares_straddle: {P} E-step CTAs a row, live groups {groups}, "
+        f"shares of {[-(-g // P) for g in groups]}")
+    assert groups[0] % P == 0 and groups[2] % P == 1, groups
+    # no wrapper waits for the card (no host read)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        huffenc.em_chain_rows(*args, cf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     assert iters_of["one_row_still_changing"] > 2, iters_of
     assert sorted(set(cases["nt_1_to_6"][0][3].tolist())) == \
         [1, 2, 3, 4, 5, 6]
@@ -1088,6 +1117,11 @@ def em_phase(text_h, batch, dev):
         f"E-steps): kernels {ms_k:.4f} ms, plain loop {ms_p:.3f} ms, plain "
         f"loop with the M-step kernel {ms_l:.3f} ms; device time of one "
         f"loop, us: {json.dumps(us)}")
+    for k, v in us.items():
+        if "em_estep" in k or "em_mstep" in k:
+            steps = iters if "em_estep" in k else iters - 1
+            log(f"  {k.split('::')[-1].split('(')[0]}: {v} us a loop, "
+                f"{v / max(steps, 1):.2f} us a step")
     # in: the live symbols, the initial trees and the small vectors; out:
     # sel, freqs, lengths, each once.  Six additions a symbol of a valid
     # group an executed iteration
@@ -2822,9 +2856,10 @@ def emit_edge_rows() -> dict:
     of 254, 255, 256, 510 and 511 bytes across the token kernels' tile
     edges (every 4096 lanes) at several offsets, a run from a tile's
     first lane, one run of the whole row, a run that touches n, a random
-    row whose run count passes N / 4, n = 0, 1 and 4097; and at full
-    width a row of one run, a random row, a row of runs of exactly 255
-    and a row whose last run touches n = 900,000."""
+    row whose run count passes N / 4, n = 0, 1 and 4097; at full width a
+    row of one run, a random row, a row of runs of exactly 255 and a row
+    whose last run touches n = 900,000; and random rows of n at the
+    edges of emit_bytes' destination buckets."""
     rng = np.random.default_rng(22)
     N = 65536
     D = rng.integers(0, 256, (8, N), dtype=np.uint8)
@@ -2845,9 +2880,17 @@ def emit_edge_rows() -> dict:
     W[0] = 11
     W[2] = np.repeat(np.arange(F // 255 + 1) % 2 + 40, 255)[:F]
     W[3, 899000:900000] = 12
+    # the emit's buckets of S = 16384 destinations: n = 0, 1, 2, S - 1,
+    # S, S + 1, 2S + 17 and N, a width that leaves the last bucket
+    # partial and puts odd rows off 16-byte alignment
+    S = 16384
+    K = rng.integers(0, 256, (8, 3 * S + 8), dtype=np.uint8)
+    kn = np.array([0, 1, 2, S - 1, S, S + 1, 2 * S + 17, 3 * S + 8],
+                  np.int32)
     return {"edges_8x65536": (D, ns),
             "full_width_4x901120": (W, np.array([F, F, F, 900000],
-                                                np.int32))}
+                                                np.int32)),
+            "edges_buckets_8x49160": (K, kn)}
 
 
 def assert_permutation(isa, ns, name: str) -> None:
@@ -2931,7 +2974,8 @@ def flatten_edge_args(dev) -> dict:
 
 def emits_phase(data: bytes, text: bytes, batch, dev) -> list:
     """21. The BWT's emits (csrc/bwt2_emit.cu behind ops/bwt2.py::
-    _emit_bytes and _emit2), the MTF kernel's byte entry with its fused
+    _emit_bytes, emit_bin then emit_place, and _emit2), the MTF kernel's
+    byte entry with its fused
     compaction (csrc/mtf_ranks.cu behind ops/mtf_pallas.py::
     mtf_ranks_bytes_rows) and the flat payload compaction
     (csrc/flatten_words.cu behind ops/chain.py::_flatten_words) against

@@ -10,12 +10,30 @@
 //                [0, n) on the lanes < n (it comes after at least one
 //                pass), so the sorted order is a scatter:
 //                bwt[ISA[p]] = prev[p], prev[p] = blocks[p - 1] and
-//                prev[0] = blocks[n - 1].  Lanes >= n are written 0, the
-//                primary index ISA[m ? n - m : 0] in the same launch.  A
-//                lane reads its ISA and its byte coalesced and stores one
-//                byte to a random place of its row: a row is 0.9 MB and a
-//                (32, 901120) batch 28.8 MB, inside the 50 MB L2, where
-//                the partial-sector stores merge before they reach HBM.
+//                prev[0] = blocks[n - 1].  Scattered straight, that is
+//                one random one-byte store a lane, which L2 has to merge
+//                into sectors: it runs at the store rate, as scatter_
+//                does, whatever the bytes.  So the destinations are
+//                bucketed first, in two launches:
+//     emit_bin   a CTA takes kBinTile lanes of one row, reads their ISA
+//                and previous byte coalesced and sorts them in shared
+//                memory by bucket ISA >> kBucketLog (a count by shared
+//                atomics, a scan, a scatter into the CTA's staging);
+//                for each non-empty bucket one global atomicAdd on the
+//                (row, bucket) cursor reserves a run in the bucket's
+//                region [k S, min((k + 1) S, n)) of a (B, N) uint32
+//                scratch, and the run is stored contiguously as
+//                (ISA & (S - 1)) << 8 | byte.  The ISA being a
+//                permutation, each bucket receives exactly its region;
+//                an entry past it (no permutation) is dropped.  The
+//                primary index ISA[m ? n - m : 0] in the same launch.
+//     emit_place a CTA a (row, bucket): zero an S-byte buffer in shared
+//                memory, read the bucket's entries coalesced up to its
+//                cursor, put each byte at its offset, store the buffer
+//                whole as 16-byte vectors.  Lanes >= n are 0.
+//                The order of a bucket's entries follows the atomics
+//                and differs from run to run; the output does not, as
+//                every destination is written once.
 //   emit_tokens  three launches over tiles of kTile lanes, a CTA a tile.
 //                A lane p < n starts a token where the byte changes (p = 0
 //                always) or where (p - runstart) % 255 == 0 and
@@ -35,9 +53,10 @@
 //
 // What bounds them: bytes.  At (32, 901120) emit_bytes must read the ISA
 // below n (115.2 MB) and the blocks (28.8 MB) and write the rows
-// (28.8 MB); emit_tokens reads the rows and writes 14.4 MB of tokens.  The
-// token launches read the rows three times, from L2 where they were just
-// written.
+// (28.8 MB); the buckets add the scratch's 115.2 MB written and read
+// again, 403 MB in all.  emit_tokens reads the rows and writes 14.4 MB of
+// tokens.  The token launches read the rows three times, from L2 where
+// they were just written.
 //
 // Plain C interface, built with nvcc -shared and loaded with ctypes
 // (lbzip2_tpu_torch/_build.py); launches on the caller's stream and
@@ -48,8 +67,14 @@
 
 namespace {
 
-constexpr int kEmitThreads = 256;
-constexpr int kEmitPer = 4;  // lanes a thread in emit_bytes
+constexpr int kBucketLog = 14;  // S = 16384 destinations a bucket
+constexpr int kBucket = 1 << kBucketLog;
+constexpr int kMaxBuckets = 512;  // rows below 2^23 lanes
+constexpr int kBinThreads = 512;
+constexpr int kBinPer = 16;  // lanes a thread in emit_bin
+constexpr int kBinTile = kBinThreads * kBinPer;
+constexpr int kPlaceThreads = 256;
+constexpr unsigned kEntry = (1u << (kBucketLog + 8)) - 1u;  // an entry's bits
 constexpr int kThreads = 256;
 constexpr int kPer = 16;  // consecutive lanes a thread in the token launches
 constexpr int kTile = kThreads * kPer;
@@ -58,30 +83,133 @@ constexpr int kMaxLen = 255;  // a token's 8-bit length
 constexpr int kNone = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void __launch_bounds__(kEmitThreads)
-    emit_bytes(const uint8_t* __restrict__ blocks,
-               const int* __restrict__ isa, const int* __restrict__ ns,
-               const int* __restrict__ ms, uint8_t* __restrict__ out,
-               int* __restrict__ primary, int N) {
-  const int b = blockIdx.y;
-  const int n = min(max(ns[b], 0), N);
-  const uint8_t* row = blocks + (size_t)b * N;
-  const int* irow = isa + (size_t)b * N;
-  uint8_t* orow = out + (size_t)b * N;
-  const int base = blockIdx.x * kEmitThreads * kEmitPer + threadIdx.x;
+// exclusive sum over s[0, count) in place, count <= kBinThreads; returns
+// the total to every thread
+__device__ int bin_scan(int* s, int count) {
+  __shared__ int warps[kBinThreads / 32];
+  __shared__ int total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x = tid < count ? s[tid] : 0;
+  int incl = x;
 #pragma unroll
-  for (int k = 0; k < kEmitPer; ++k) {
-    const int p = base + k * kEmitThreads;
-    if (p < n) {
-      const unsigned d = (unsigned)irow[p];
-      if (d < (unsigned)n) orow[d] = row[p ? p - 1 : n - 1];
-    } else if (p < N) {
-      orow[p] = 0;
-    }
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (lane == 31) warps[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kBinThreads / 32 ? warps[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < kBinThreads / 32) warps[lane] = w;
+    if (lane == kBinThreads / 32 - 1) total = w;
+  }
+  __syncthreads();
+  if (tid < count) s[tid] = incl - x + (warp ? warps[warp - 1] : 0);
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kBinThreads, 2)
+    emit_bin(const uint8_t* __restrict__ blocks, const int* __restrict__ isa,
+             const int* __restrict__ ns, const int* __restrict__ ms,
+             unsigned* __restrict__ entries, int* __restrict__ cursors,
+             int* __restrict__ primary, int N, int nb) {
+  __shared__ unsigned s_ent[kBinTile];
+  __shared__ int s_cnt[kMaxBuckets], s_off[kMaxBuckets], s_base[kMaxBuckets];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int n = min(max(ns[b], 0), N);
+  const int* irow = isa + (size_t)b * N;
+  if (blockIdx.x == 0 && tid == 0) {
     const int m = ms[b];
     primary[b] = irow[min(max(m == 0 ? 0 : n - m, 0), N - 1)];
+  }
+  const int lo = blockIdx.x * kBinTile;
+  if (lo >= n) return;  // the whole CTA
+  for (int k = tid; k < nb; k += kBinThreads) s_cnt[k] = 0;
+  __syncthreads();
+  // a lane's staged value ISA << 8 | byte (31 bits), its bucket in the
+  // top bits, and its rank among the CTA's lanes of that bucket.  Every
+  // load is issued before the first atomic: a load cannot be moved past
+  // one, and a load, an atomic, a load... waits for memory at each lane
+  const uint8_t* row = blocks + (size_t)b * N;
+  unsigned v[kBinPer];
+  int r[kBinPer];
+#pragma unroll
+  for (int j = 0; j < kBinPer; ++j) {
+    const int p = lo + j * kBinThreads + tid;
+    v[j] = p < n ? (unsigned)irow[p] : 0xFFFFFFFFu;
+    r[j] = p < n ? row[p ? p - 1 : n - 1] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kBinPer; ++j) {
+    const unsigned d = v[j];
+    v[j] = d << 8 | (unsigned)r[j];
+    r[j] = d < (unsigned)n ? atomicAdd(&s_cnt[d >> kBucketLog], 1) : -1;
+  }
+  __syncthreads();
+  for (int k = tid; k < nb; k += kBinThreads) s_off[k] = s_cnt[k];
+  const int total = bin_scan(s_off, nb);
+#pragma unroll
+  for (int j = 0; j < kBinPer; ++j)
+    if (r[j] >= 0) s_ent[s_off[v[j] >> (kBucketLog + 8)] + r[j]] = v[j];
+  for (int k = tid; k < nb; k += kBinThreads)
+    if (s_cnt[k])
+      s_base[k] = atomicAdd(&cursors[(size_t)b * nb + k], s_cnt[k]);
+  __syncthreads();
+  unsigned* erow = entries + (size_t)b * N;
+  for (int i = tid; i < total; i += kBinThreads) {
+    const unsigned e = s_ent[i];
+    const int k = (int)(e >> (kBucketLog + 8));
+    const int dst = k * kBucket + s_base[k] + (i - s_off[k]);
+    if (dst < min((k + 1) * kBucket, n)) erow[dst] = e & kEntry;
+  }
+}
+
+__global__ void __launch_bounds__(kPlaceThreads)
+    emit_place(const unsigned* __restrict__ entries,
+               const int* __restrict__ cursors, const int* __restrict__ ns,
+               uint8_t* __restrict__ out, int N, int nb) {
+  __shared__ __align__(16) uint8_t buf[kBucket];
+  const int k = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int n = min(max(ns[b], 0), N);
+  const int lo = k * kBucket;
+  const int len = min(kBucket, N - lo);  // the bucket's lanes of the row
+  const int cnt = min(cursors[(size_t)b * nb + k],
+                      max(min(kBucket, n - lo), 0));
+  uint4* b4 = reinterpret_cast<uint4*>(buf);
+  for (int i = tid; i < kBucket / 16; i += kPlaceThreads)
+    b4[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const unsigned* e = entries + (size_t)b * N + lo;
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(e) & 15) == 0) {
+    const uint4* e4 = reinterpret_cast<const uint4*>(e);
+    for (int i = tid; i < cnt / 4; i += kPlaceThreads) {
+      const uint4 x = e4[i];
+      buf[x.x >> 8] = (uint8_t)x.x;
+      buf[x.y >> 8] = (uint8_t)x.y;
+      buf[x.z >> 8] = (uint8_t)x.z;
+      buf[x.w >> 8] = (uint8_t)x.w;
+    }
+    i0 = cnt & ~3;
+  }
+  for (int i = i0 + tid; i < cnt; i += kPlaceThreads) {
+    const unsigned x = e[i];
+    buf[x >> 8] = (uint8_t)x;
+  }
+  __syncthreads();
+  uint8_t* o = out + (size_t)b * N + lo;
+  for (int i = tid * 16; i < len; i += kPlaceThreads * 16) {
+    if (i + 16 <= len && (reinterpret_cast<uintptr_t>(o + i) & 15) == 0) {
+      *reinterpret_cast<uint4*>(o + i) = b4[i / 16];
+    } else {
+      for (int q = i; q < min(i + 16, len); ++q) o[q] = buf[q];
+    }
   }
 }
 
@@ -304,19 +432,36 @@ int tiles_of(int N) { return (N + kTile - 1) / kTile; }
 
 }  // namespace
 
+int buckets_of(int N) { return (N + kBucket - 1) / kBucket; }
+
+// the (row, bucket) cursors emit_bytes needs for rows of N lanes, or -1
+// where it does not take them
+extern "C" int lbz2t_emit_buckets(int N) {
+  return N > 0 && buckets_of(N) <= kMaxBuckets ? buckets_of(N) : -1;
+}
+
 // blocks (B, N) uint8, isa (B, N) int32 (a permutation of [0, n) on the
 // lanes < n), ns and ms (B,) int32 in; out (B, N) uint8 and primary (B,)
-// int32 out; all device pointers.
+// int32 out; entries (B, N) uint32 scratch and cursors (B,
+// lbz2t_emit_buckets(N)) int32, zero in; all device pointers.
 extern "C" int lbz2t_emit_bytes(const void* blocks, const void* isa,
                                 const void* ns, const void* ms, void* out,
-                                void* primary, int B, int N, void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+                                void* primary, void* entries, void* cursors,
+                                int B, int N, void* stream) {
+  const int nb = lbz2t_emit_buckets(N);
+  if (B <= 0 || nb < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = kEmitThreads * kEmitPer;
-  emit_bytes<<<dim3((N + per - 1) / per, B), kEmitThreads, 0, s>>>(
-      static_cast<const uint8_t*>(blocks), static_cast<const int*>(isa),
-      static_cast<const int*>(ns), static_cast<const int*>(ms),
-      static_cast<uint8_t*>(out), static_cast<int*>(primary), N);
+  const int* nn = static_cast<const int*>(ns);
+  int* cur = static_cast<int*>(cursors);
+  unsigned* ent = static_cast<unsigned*>(entries);
+  emit_bin<<<dim3((N + kBinTile - 1) / kBinTile, B), kBinThreads, 0, s>>>(
+      static_cast<const uint8_t*>(blocks), static_cast<const int*>(isa), nn,
+      static_cast<const int*>(ms), ent, cur, static_cast<int*>(primary), N,
+      nb);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  emit_place<<<dim3(nb, B), kPlaceThreads, 0, s>>>(
+      ent, cur, nn, static_cast<uint8_t*>(out), N, nb);
   return (int)cudaGetLastError();
 }
 

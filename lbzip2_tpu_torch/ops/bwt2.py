@@ -28,9 +28,11 @@ and reads nothing there.
 
 The emits run ``csrc/bwt2_emit.cu`` for a CUDA tensor: ``_emit_bytes``
 scatters each lane's previous byte to its ISA (a permutation of [0, n)
-on the lanes < n once a pass has run), ``_emit2`` then counts and
-writes the run tokens over tiles of 4096 lanes.  For a CPU tensor they
-run JAX's sort formulation (``_emit_bytes_plain``, ``_emit2_plain``).
+on the lanes < n once a pass has run) through buckets of 16384
+destinations (``emit_bin`` then ``emit_place``), ``_emit2`` then counts
+and writes the run tokens over tiles of 4096 lanes.  For a CPU tensor
+they run JAX's sort formulation (``_emit_bytes_plain``,
+``_emit2_plain``).
 
 The plain multi-key stable sorts are ``torch.sort(stable=True)``
 passes over keys packed two to an int64, ``(signed hi << 32) +
@@ -64,7 +66,7 @@ SEG_BLOCKS = (256, 1024, 4096)
 
 launches = 0       # seeds and passes that launched the CUDA kernels
 pass_launches = 0  # of those, the passes (_pass8, and the loop's on the card)
-emit_launches = 0   # launches of emit_bytes (_emit_bytes, _emit2)
+emit_launches = 0   # emit_bytes' launch pairs (_emit_bytes, _emit2)
 token_launches = 0  # launches of emit_tokens (_emit2)
 _held = threading.local()  # a thread's kernel scratch, per device
 
@@ -412,7 +414,9 @@ def _emit_bytes_plain(blocks: torch.Tensor, ISA: torch.Tensor,
 def _emit_lib():
     lib = _build.load("bwt2_emit")
     if lib.lbz2t_emit_bytes.argtypes is None:
-        lib.lbz2t_emit_bytes.argtypes = [ctypes.c_void_p] * 6 + \
+        lib.lbz2t_emit_buckets.argtypes = [ctypes.c_int]
+        lib.lbz2t_emit_buckets.restype = ctypes.c_int
+        lib.lbz2t_emit_bytes.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.lbz2t_emit_tokens_scratch_ints.argtypes = [ctypes.c_int] * 2
         lib.lbz2t_emit_tokens_scratch_ints.restype = ctypes.c_longlong
@@ -441,12 +445,17 @@ def _emit_checked(blocks, ISA, ns, ms):
                          f"{tuple(ms.shape)}")
     if not all(a.is_contiguous() for a in (blocks, ISA, ns, ms)):
         raise ValueError("the emit kernels' inputs must be contiguous")
+    if blocks.shape[1] > MAX_N:
+        raise ValueError(f"rows of {blocks.shape[1]} lanes: the emit "
+                         f"kernels take at most {MAX_N}")
     return _emit_lib()
 
 
 def _emit_bytes_cuda(lib, blocks, ISA, ns, ms):
-    """Launch ``emit_bytes`` on the current stream (nothing read on the
-    host): (bwt (B, N) uint8, primary (B,) int32)."""
+    """Launch ``emit_bin`` and ``emit_place`` on the current stream
+    (nothing read on the host): (bwt (B, N) uint8, primary (B,) int32).
+    Their scratch: the (B, N) uint32 bucket entries and the (row,
+    bucket) cursors, zeroed."""
     global emit_launches
     B, N = blocks.shape
     dev = blocks.device
@@ -455,9 +464,13 @@ def _emit_bytes_cuda(lib, blocks, ISA, ns, ms):
         primary = torch.zeros(B, dtype=torch.int32, device=dev)
         if B == 0 or N == 0:
             return out, primary
+        entries = torch.empty((B, N), dtype=torch.int32, device=dev)
+        cursors = torch.zeros((B, lib.lbz2t_emit_buckets(N)),
+                              dtype=torch.int32, device=dev)
         err = lib.lbz2t_emit_bytes(
             blocks.data_ptr(), ISA.data_ptr(), ns.data_ptr(), ms.data_ptr(),
-            out.data_ptr(), primary.data_ptr(), B, N,
+            out.data_ptr(), primary.data_ptr(), entries.data_ptr(),
+            cursors.data_ptr(), B, N,
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"bwt2 emit_bytes launch failed: cudaError "
@@ -473,12 +486,14 @@ def _emit_bytes(blocks: torch.Tensor, ISA: torch.Tensor, ns: torch.Tensor,
     primary = ISA[(n - m) mod n].  Chain mode keeps the rows on the
     device.
 
-    For a CUDA tensor the kernel ``emit_bytes`` of
+    For a CUDA tensor the two launches of ``emit_bytes`` in
     ``csrc/bwt2_emit.cu``: its precondition is that the ISA is a
     permutation of [0, n) on the lanes < n, as every ISA the resolve
     loop hands over is (it comes after at least one pass); then the
-    emit is the scatter bwt[ISA[p]] = prev[p], and lanes >= n are 0.
-    For a CPU tensor the plain version (``_emit_bytes_plain``)."""
+    emit is the scatter bwt[ISA[p]] = prev[p], lanes >= n are 0, done
+    by bucketing the lanes by destination (``emit_bin``) and writing
+    each bucket's bytes from shared memory (``emit_place``).  For a
+    CPU tensor the plain version (``_emit_bytes_plain``)."""
     if blocks.device.type == "cpu":
         return _emit_bytes_plain(blocks, ISA, ns, ms)
     if blocks.device.type != "cuda":

@@ -16,7 +16,8 @@ step, which is why it is not the card's path.
 
 ``em_chain_rows`` is the whole EM loop of a batch.  For CUDA tensors it
 enqueues the kernels of ``csrc/em_chain.cu``: an E-step that reads the
-symbols themselves and an M-step that runs the code-length device
+symbols themselves (a persistent grid of ``estep_ctas`` CTAs a row, a
+pair of lanes a group) and an M-step that runs the code-length device
 function, ``cluster_factor`` rounds with the convergence test in device
 memory, so the host reads nothing inside the loop.  For CPU tensors it
 runs the plain loop ``_em_chain`` over the per-group histogram, the JAX
@@ -226,12 +227,23 @@ def _em_chain(hist_g: torch.Tensor, ngroups: torch.Tensor,
 
 
 def _em_lib():
-    fn = _build.load("em_chain").lbz2t_em_chain
+    lib = _build.load("em_chain")
+    fn = lib.lbz2t_em_chain
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.lbz2t_em_ctas.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_em_ctas.restype = ctypes.c_int
     return fn
+
+
+def estep_ctas(B: int, G: int) -> int:
+    """The E-step kernel's CTAs a row for B rows of G groups on the
+    current CUDA device (each takes an equal share of its row's live
+    groups)."""
+    _em_lib()
+    return _build.load("em_chain").lbz2t_em_ctas(B, G)
 
 
 def em_chain_cuda(mtfv: torch.Tensor, nm: torch.Tensor,

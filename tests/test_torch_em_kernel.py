@@ -14,6 +14,9 @@ The model below follows the kernels statement by statement; inputs are
 made with numpy from seeds; every comparison is exact.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +34,8 @@ M32 = 0xFFFFFFFF
 INF = 0x7FFFFFFF
 INF_NODE = (INF << 32) | INF
 NP = 8193  # the 8192 bucket's row of symbols: 164 groups
+SRC = pathlib.Path(__file__).resolve().parent.parent / "lbzip2_tpu_torch" / \
+    "csrc" / "em_chain.cu"
 G = (NP + 49) // 50
 
 
@@ -156,31 +161,119 @@ def _select_tree(glo, ghi, nt: int):
     return bt
 
 
-def model_estep_row(row, nm, ninuse, nt, lengths):
-    """em_estep for one row: (selectors (G,), freqs (6, W))."""
+def _const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+)", SRC.read_text())
+               .group(1))
+
+
+ETHREADS = _const("kEThreads")    # a CTA of the E-step; two lanes a group
+BUF_WORDS = ETHREADS // 2 * 50 + 8  # one of its two tile buffers
+
+
+def model_stage(base: int, w0: int, w1: int):
+    """stage_tile: the copies it issues for the row's words [w0, w1), the
+    row starting at word ``base`` of a 16-byte aligned allocation, as
+    (buffer index, word) pairs, and the tile's phase.  Asserts that each
+    word of [w0, w1) is copied once, to w - w0 + phase, and nothing
+    else, and that every 16-byte copy is aligned on both sides."""
+    a = (base + w0) & 3
+    cw = w0 - a
+    pairs = []
+    for q in range(max(0, (w1 - cw + 3) >> 2)):
+        lo = cw + 4 * q
+        if lo >= w0 and lo + 4 <= w1:  # one 16-byte copy
+            assert (base + lo) % 4 == 0
+            pairs += [(4 * q + i, lo + i) for i in range(4)]
+        else:  # 4-byte copies at the ragged ends
+            pairs += [(w - cw, w) for w in range(max(lo, w0),
+                                                 min(lo + 4, w1))]
+    assert sorted(w for _, w in pairs) == list(range(w0, w1))
+    assert all(i == w - w0 + a and i < BUF_WORDS for i, w in pairs)
+    return pairs, a
+
+
+def model_estep_row(row, nm, ninuse, nt, lengths, prev=None, P=1,
+                    threads=ETHREADS, base=0):
+    """em_estep for one row, its P CTAs one after another: (selectors
+    (G,), freqs (6, W), changed).  prev: the previous iteration's
+    selectors (None in the first); threads: a CTA's lanes, two a group;
+    base: the row's first word in the allocation (its 16-byte phase)."""
     np_ = row.size
-    g_all = (np_ + 49) // 50
+    G = (np_ + 49) // 50
     dummy = min(max(int(ninuse) + 2, 0), W - 1)
     nm = min(max(int(nm), 0), np_)
     ngroups = (nm + 49) // 50
-    lo, hi = _pack3(lengths[:3]), _pack3(lengths[3:])
-    sym = np.full(ngroups * 50, dummy, np.int64)
-    sym[:nm] = np.clip(row[:nm], 0, W - 1)
-    sym = sym.reshape(ngroups, 50)
-    glo = lo[sym].sum(1) & M32  # the warp's wrapping 32-bit sum
-    ghi = hi[sym].sum(1) & M32
-    sel = np.empty(g_all, np.int32)
-    sel[:ngroups] = _select_tree(glo, ghi, int(nt))
-    sel[ngroups:] = _select_tree((50 * lo[dummy]) & M32,
-                                 (50 * hi[dummy]) & M32, int(nt))
-    freqs = np.zeros((6, W), np.int32)
-    np.add.at(freqs, (np.repeat(sel[:ngroups], 50), sym.reshape(-1)), 1)
-    return sel, freqs
+    s_lo, s_hi = _pack3(lengths[:3]), _pack3(lengths[3:])
+    sel = np.full(G, -1, np.int32) if prev is None else prev.copy()
+    it = 0 if prev is None else 1
+    owners = np.zeros(G, np.int32)  # CTAs that own a group
+    freqs = np.zeros((6, W), np.int64)
+    changed = False
+    tile = threads // 2
+    share = -(-ngroups // P)
+    tshare = -(-(G - ngroups) // P)
+    lane = np.arange(threads)
+    gi, half = lane >> 1, lane & 1
+    for c in range(P):
+        g0 = min(c * share, ngroups)
+        g1 = min(g0 + share, ngroups)
+        s_freq = np.zeros((6, W), np.int64)
+        for t in range(-(-(g1 - g0) // tile)):
+            tg0 = g0 + t * tile
+            pairs, a = model_stage(base, tg0 * 50,
+                                   min(min(tg0 + tile, g1) * 50, nm))
+            buf = np.full(BUF_WORDS, -(2 ** 40), np.int64)  # stale words
+            for i, w in pairs:
+                buf[i] = row[w]
+            g = tg0 + gi
+            live = g < g1
+            lo = np.zeros(threads, np.int64)
+            hi = np.zeros(threads, np.int64)
+            syms = np.full((threads, 25), dummy, np.int64)
+            for j in range(25):
+                idx = a + gi * 50 + half * 25 + j
+                banks = (idx + (t & 1) * BUF_WORDS) % 32
+                for w in range(0, threads, 32):  # a warp's 32 banks
+                    assert np.unique(banks[w:w + 32]).size == \
+                        banks[w:w + 32].size
+                p = g * 50 + half * 25 + j
+                s = np.full(threads, dummy, np.int64)
+                inside = live & (p < nm)
+                s[inside] = np.clip(buf[idx[inside]], 0, W - 1)
+                assert (buf[idx[inside]] > -(2 ** 40)).all(), "stale word"
+                syms[:, j] = s
+                lo = np.where(live, (lo + s_lo[s].astype(np.int64)) & M32,
+                              lo)
+                hi = np.where(live, (hi + s_hi[s].astype(np.int64)) & M32,
+                              hi)
+            lo = (lo + lo[lane ^ 1]) & M32  # __shfl_xor_sync(.., 1)
+            hi = (hi + hi[lane ^ 1]) & M32
+            bt = _select_tree(lo, hi, int(nt))
+            for k in np.flatnonzero(live & (half == 0)):
+                owners[g[k]] += 1
+                if it == 0 or sel[g[k]] != bt[k]:
+                    changed |= it > 0
+                    sel[g[k]] = bt[k]
+            for k in np.flatnonzero(live):  # a shared atomic a symbol
+                np.add.at(s_freq, (bt[k], syms[k]), 1)
+        freqs += s_freq  # the CTA's flush
+        tail = _select_tree([(50 * int(s_lo[dummy])) & M32],
+                            [(50 * int(s_hi[dummy])) & M32], int(nt))[0]
+        t0 = ngroups + c * tshare
+        for gg in range(t0, min(t0 + tshare, G)):
+            owners[gg] += 1
+            if it == 0 or sel[gg] != tail:
+                changed |= it > 0
+                sel[gg] = tail
+    assert (owners == 1).all(), "a group owned by no CTA or by two"
+    return sel, freqs.astype(np.int32), changed
 
 
-def model_em_loop(mtfv, nm, ninuse, nt, lengths0, cf, trace=None):
-    """lbz2t_em_chain: cf rounds of em_estep and em_mstep over the control
-    words ctl[0] done, ctl[1] iterations, ctl[2 + it] changed."""
+def model_em_loop(mtfv, nm, ninuse, nt, lengths0, cf, trace=None, P=1,
+                  threads=ETHREADS):
+    """lbz2t_em_chain: cf rounds of em_estep (P CTAs a row of ``threads``
+    lanes) and em_mstep over the control words ctl[0] done, ctl[1]
+    iterations, ctl[2 + it] changed."""
     B = mtfv.shape[0]
     ctl = np.zeros(2 + cf, np.int32)
     lengths = lengths0.astype(np.int32).copy()
@@ -191,9 +284,12 @@ def model_em_loop(mtfv, nm, ninuse, nt, lengths0, cf, trace=None):
             ctl[1] = it + 1
             moved = []
             for b in range(B):
-                s, f = model_estep_row(mtfv[b], nm[b], ninuse[b], nt[b],
-                                       lengths[b])
-                moved.append(bool(it > 0 and (s != sel[b]).any()))
+                s, f, ch = model_estep_row(
+                    mtfv[b], nm[b], ninuse[b], nt[b], lengths[b],
+                    sel[b] if it > 0 else None, P, threads,
+                    base=b * mtfv.shape[1])
+                assert ch == bool(it > 0 and (s != sel[b]).any())
+                moved.append(ch)
                 sel[b] = s
                 freqs[b] += f
             ctl[2 + it] |= int(any(moved))

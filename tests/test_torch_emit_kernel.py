@@ -6,8 +6,16 @@ bwt2_emit.cu) held against the port's plain ``_emit_bytes`` /
 ``emit_bytes`` is a scatter: on the lanes < n the ISA the resolve loop
 hands over is a permutation of [0, n), so bwt[ISA[p]] = prev[p] (prev[0]
 the row's last byte), lanes >= n are 0 and the primary index is
-ISA[m ? n - m : 0]; the model checks the precondition and that every lane
-is written once.  The token kernels run in three launches over tiles of
+ISA[m ? n - m : 0].  It runs in two launches over buckets of S
+destinations: ``emit_bin`` sorts a tile of T lanes by bucket in shared
+memory and reserves a run of each bucket's region of a scratch with one
+atomic a bucket, storing (ISA mod S) << 8 | byte; ``emit_place`` puts a
+bucket's bytes into an S-byte buffer and stores it whole.  The model
+(``emit_bytes_model``) runs the CTAs of both launches in a random order
+(the atomics' order is the hardware's) and checks the precondition,
+that every region is filled exactly, that every staging slot, scratch
+entry and destination is written once, and that the output is the same
+whatever the order.  The token kernels run in three launches over tiles of
 threads * per lanes: each tile's last byte change; each tile's count of
 token starts from the run start open at its left (the tiles before it,
 then the threads before in it); then every start's token index (the
@@ -54,24 +62,92 @@ _j_resolve_loop = jax.jit(jbwt2._resolve_loop)
 
 # (threads, per): the kernel's tile, and tiny ones (16 and 2 lanes)
 CONFIGS = [(_const("kThreads"), _const("kPer")), (4, 4), (2, 1)]
+# emit_bytes' buckets of destinations and tiles of lanes
+BUCKET = 1 << _const("kBucketLog")
+BIN_TILE = _const("kBinThreads") * _const("kBinPer")
 
 
-def emit_bytes_model(blocks, isa, ns, ms):
-    """The emit_bytes kernel row by row: (bwt, primary)."""
+def emit_bytes_model(blocks, isa, ns, ms, S: int = BUCKET, T: int = BIN_TILE,
+                     rng=None, check: bool = True):
+    """The emit_bytes kernels at buckets of S destinations and tiles of T
+    lanes, their CTAs in rng's order (launch order without one): (bwt,
+    primary).  check: the ISA must be a permutation of [0, n)."""
     B, N = blocks.shape
-    out = np.zeros((B, N), np.uint8)
+    nb = -(-N // S)
+    shift = S.bit_length() - 1
+    assert 1 << shift == S
+    entries = np.full((B, N), -1, np.int64)  # the uninitialised scratch
+    cursors = np.zeros((B, nb), np.int64)
     primary = np.zeros(B, np.int32)
-    for b in range(B):
+    lanes_of = np.arange(N)
+
+    def order(items):
+        return [items[i] for i in rng.permutation(len(items))] \
+            if rng is not None else items
+
+    for b in range(B) if check else ():
         n = max(0, min(int(ns[b]), N))
-        dest = isa[b, :n].astype(np.int64)
-        assert np.array_equal(np.sort(dest), np.arange(n)), \
+        assert np.array_equal(np.sort(isa[b, :n]), np.arange(n)), \
             f"row {b}: the ISA is no permutation of [0, n)"
-        if n:
-            prev = np.roll(blocks[b, :n], 1)  # prev[0] = blocks[n - 1]
-            out[b, dest] = prev
-        m = int(ms[b])
-        primary[b] = isa[b, min(max(0 if m == 0 else n - m, 0), N - 1)]
-    return out, primary
+    # launch 1: emit_bin, a CTA a (row, tile)
+    for b, t in order([(b, t) for b in range(B) for t in range(-(-N // T))]):
+        n = max(0, min(int(ns[b]), N))
+        if t == 0:
+            m = int(ms[b])
+            primary[b] = isa[b, min(max(0 if m == 0 else n - m, 0), N - 1)]
+        lo = t * T
+        if lo >= n:
+            continue
+        p = lanes_of[lo:min(lo + T, n)]
+        d = isa[b, p].astype(np.int64) & 0xFFFFFFFF  # unsigned
+        keep = d < n
+        p, d = p[keep], d[keep]
+        v = d << 8 | blocks[b, np.where(p > 0, p - 1, n - 1)]
+        k = d >> shift
+        # a lane's rank among the tile's lanes of its bucket: the order
+        # in which the shared atomics land
+        landed = rng.permutation(p.size) if rng is not None \
+            else np.arange(p.size)
+        by = np.lexsort((landed, k))
+        cnt = np.bincount(k, minlength=nb)
+        off = np.cumsum(cnt) - cnt  # bin_scan
+        r = np.empty(p.size, np.int64)
+        r[by] = np.arange(p.size) - off[k[by]]
+        staged = np.full(int(cnt.sum()), -1, np.int64)
+        assert (staged[off[k] + r] == -1).all()
+        staged[off[k] + r] = v
+        assert np.unique(off[k] + r).size == p.size, "staging slot reused"
+        base = np.zeros(nb, np.int64)
+        for kk in order(list(np.flatnonzero(cnt))):  # one atomic a bucket
+            base[kk] = cursors[b, kk]
+            cursors[b, kk] += cnt[kk]
+        i = np.arange(staged.size)
+        kk = staged >> (shift + 8)
+        dst = kk * S + base[kk] + (i - off[kk])
+        ok = dst < np.minimum((kk + 1) * S, n)
+        assert (entries[b, dst[ok]] == -1).all(), "scratch entry written twice"
+        entries[b, dst[ok]] = staged[ok] & ((1 << (shift + 8)) - 1)
+    # launch 2: emit_place, a CTA a (row, bucket)
+    out = np.full((B, N), -1, np.int64)
+    for b, k in order([(b, k) for b in range(B) for k in range(nb)]):
+        n = max(0, min(int(ns[b]), N))
+        lo = k * S
+        length = min(S, N - lo)
+        region = max(min(S, n - lo), 0)
+        if check:
+            assert cursors[b, k] == region, "a region not filled exactly"
+        cnt = min(int(cursors[b, k]), region)
+        buf = np.zeros(S, np.int64)
+        e = entries[b, lo:lo + cnt]
+        assert (e >= 0).all(), "an entry read before it was written"
+        buf[e >> 8] = e & 255
+        if check:
+            assert np.array_equal(np.sort(e >> 8), np.arange(cnt)), \
+                "a destination written twice or never"
+        assert (out[b, lo:lo + length] == -1).all()
+        out[b, lo:lo + length] = buf[:length]
+    assert (out >= 0).all(), "a lane of the output never written"
+    return out.astype(np.uint8), primary
 
 
 def tokens_model(bwt, ns, threads: int, per: int):
@@ -207,7 +283,8 @@ def test_emit_models_against_plain_and_jax(kind):
     blocks = _edge_blocks() if kind == "n_0_1_2" else _token_blocks(kind, 9)
     rot, ns, ms = _lyndon(blocks)
     isa = np.asarray(_j_resolve_loop(jnp.asarray(rot), jnp.asarray(ns)))
-    bwt_m, prim_m = emit_bytes_model(rot, isa, ns, ms)
+    bwt_m, prim_m = emit_bytes_model(rot, isa, ns, ms,
+                                     rng=np.random.default_rng(33))
     bwt_p, prim_p = (to_numpy(t) for t in bwt2._emit_bytes(
         to_torch(rot), to_torch(isa), to_torch(ns), to_torch(ms)))
     bwt_j, prim_j = (np.asarray(a) for a in jbwt2.emit_bytes(
@@ -276,7 +353,8 @@ def test_tokens_model_on_designed_rows(config, kind):
     D, ns = designed_rows(kind, N, threads * per)
     blocks, isa, ns, ms = _smoke().emit_inputs(D, ns,
                                                np.random.default_rng(32))
-    bwt_m, prim_m = emit_bytes_model(blocks, isa, ns, ms)
+    bwt_m, prim_m = emit_bytes_model(blocks, isa, ns, ms,
+                                     rng=np.random.default_rng(34))
     for b, n in enumerate(ns):
         np.testing.assert_array_equal(bwt_m[b, :n], D[b, :n])
     got = tokens_model(bwt_m, ns, threads, per)
@@ -296,11 +374,22 @@ def test_tokens_model_on_designed_rows(config, kind):
 
 def test_model_constants_match_the_source():
     """The kernel's tile and token length as the model takes them, and a
-    halo of kMaxLen lanes needs no more than a CTA's threads."""
+    halo of kMaxLen lanes needs no more than a CTA's threads; emit_bytes'
+    buckets and tiles: a row of MAX_N lanes has at most kMaxBuckets
+    buckets, one a thread of bin_scan, a staged ISA << 8 | byte fits 31
+    bits, and an entry's offset and byte fill its kEntry bits."""
     src = SRC.read_text()
     assert _const("kMaxLen") == MAXLEN <= CONFIGS[0][0]
     assert "constexpr int kTile = kThreads * kPer;" in src
     assert "if (tid < kMaxLen && q < n" in src
+    assert "constexpr int kBinTile = kBinThreads * kBinPer;" in src
+    assert "constexpr int kBucket = 1 << kBucketLog;" in src
+    assert "constexpr unsigned kEntry = (1u << (kBucketLog + 8)) - 1u;" in src
+    assert bwt2.MAX_N // BUCKET == _const("kMaxBuckets") <= \
+        _const("kBinThreads")
+    assert (bwt2.MAX_N - 1) << 8 | 255 < 2 ** 31
+    assert "const int k = (int)(e >> (kBucketLog + 8));" in src
+    assert "buf[x >> 8] = (uint8_t)x;" in src
 
 
 @pytest.mark.parametrize("fn", ["_emit_bytes", "_emit2"])
