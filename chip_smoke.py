@@ -22,8 +22,9 @@ device's busy time over one device-only compress of the phase-6 stream
 and takes the stream runs that --measure adds to phase 6 (stream_runs):
 the phase-6 stream through compress
 in the shipped default (host stealing and steal-back on: the device's
-share, stale rows, every batch's claim->deliver time) and device-only,
-and through decompress_parallel and decompress_stream with both device
+share, stale rows, every batch's claim->deliver time), device-only and
+in token mode device-only (each run's cudaMalloc count), and through
+decompress_parallel and decompress_stream with both device
 stages and the host C path (the decoder's stage times), each checked,
 as one JSON line.
 
@@ -69,9 +70,10 @@ Phases (any failure exits non-zero before the last line is printed):
              place (plain E-steps, the M-step kernel between them, the
              convergence test read on the host: the main path before the
              loop moved to the card), then stream_runs: three warm runs in
-             the shipped default (host stealing and steal-back on) and one
-             device-only, with the blocks the device took and every
-             batch's times, and both decoders with the device stages and
+             the shipped default (host stealing and steal-back on), one
+             device-only and three in token mode device-only, with the
+             blocks the device took, every batch's times and each run's
+             cudaMalloc count, and both decoders with the device stages and
              the host C path, with each stage's seconds.
   7. tokens: the same stream in token mode, in a child process of this
              script with LBZ2_DEVICE_CHAIN=0 (the mode is read when the
@@ -214,15 +216,22 @@ Phases (any failure exits non-zero before the last line is printed):
              rows (runs of 2^j - 2 to 2^j across tile edges, a run over
              three tiles, runs that touch n, garbage past n, n = 0 and
              1, a row of one run of 901120, a row whose EOB is its last
-             lane, ninuse 1 and 256); the packing on the arguments
-             chain_payloads gives it on each of those batches and on
-             synthetic rows (start bit 31, codes of 20 bits, a dummy
-             symbol with a length, selectors out of range, ngroups 0 and
-             below G, rows past W); both wrappers once on the text batch
+             lane, ninuse 1 and 256, and the look-back's stress rows:
+             all-zero ranks at n = N, one run after a nonzero, n = 0, 1
+             and 2 at (5, 901120) and one run of a (1, 901120) row); the
+             packing on the arguments chain_payloads gives it on each of
+             those batches and on synthetic rows (start bit 31, codes of
+             20 bits, a dummy symbol with a length, selectors out of
+             range, ngroups 0 and below G, every row at ngroups 0, rows
+             past W, at full width too); each case three times, each
+             call against the plain version (the per-call state on the
+             card resets itself); both wrappers once on the text batch
              under torch.cuda.set_sync_debug_mode("error") (no host
-             read); CUDA-event times of both and of their plain versions
-             on the text batch in turns, and each kernel's device
-             time.  (It runs after phase 19.)  Phases 6, 16 and 17
+             read); the device kernels three calls run, by
+             torch.profiler (rle2_scan and rle2_tail; the zero fill and
+             pack_chunks; nothing else); CUDA-event times of both and of
+             their plain versions on the text batch in turns, and each
+             kernel's device time.  (It runs after phase 19.)  Phases 6, 16 and 17
              assert that their paths launched both and called neither
              plain version, phase 18 that each process launched both.
  21. emits:  the BWT's emits (csrc/bwt2_emit.cu behind ops/bwt2.py::
@@ -1909,7 +1918,10 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
     Compress in the shipped default (host stealing and steal-back on)
     four times, the first not kept (the process's first call may be
     cold), then once device-only (stealing off, as the rest of the smoke
-    runs), each equal to ``ref`` (bin/lbzip2 -9); then
+    runs), then in token mode device-only (warm_device of the mode, then
+    four times, the first not kept), each equal to ``ref`` (bin/lbzip2
+    -9), each run with its batches' dispatch, ready and expand seconds
+    summed; then
     decompress_parallel three times and decompress_stream once with both
     device stages on, and the host C path, each equal to the data; per
     run its MB/s, the engines' block counts, every batch's times and the
@@ -1923,26 +1935,58 @@ def stream_runs(data: bytes, ref: bytes, dev) -> dict:
     res = {"package": os.path.dirname(encoder.__file__), "card": card_line(),
            "bytes": len(data), "compress": [], "decompress": []}
     batch_keys = ("rows", "claimed_t", "claim_s", "prep_s", "dispatch_s",
-                  "ready_s", "done_t", "bwt2_passes", "chain_stages")
-    for steal, turns in ((True, 4), (False, 1)):
-        encoder._HOST_STEAL = encoder._STEALBACK = steal
+                  "ready_s", "expand_s", "done_t", "bwt2_passes",
+                  "chain_stages")
+
+    def allocator():
+        """The caching allocator's cudaMalloc calls, cudaFree calls and
+        retries (a retry frees the cache and synchronizes) so far."""
+        st = torch.cuda.memory_stats(dev)
+        return {k: st.get(k, 0) for k in ("num_device_alloc",
+                                          "num_device_free",
+                                          "num_alloc_retries")}
+
+    def compress_turns(config: str, turns: int, keep_first: bool):
         for turn in range(turns):
             torch.cuda.reset_peak_memory_stats(dev)
+            before = allocator()
             t0 = time.time()
             out = encoder.compress(data, 9, device=dev)
             dt = time.time() - t0
             peak = torch.cuda.max_memory_allocated(dev)
+            grown = {k: v - before[k] for k, v in allocator().items()}
             st = encoder.last_stats
-            assert out == ref, "compress differs from bin/lbzip2 -9"
-            if steal and turn == 0:
-                continue  # the first call of the process is cold
+            assert out == ref, f"compress ({config}) differs from " \
+                "bin/lbzip2 -9"
+            if turn == 0 and not keep_first:
+                continue  # the first call of the process or mode is cold
+            batches = [{k: t.get(k) for k in batch_keys}
+                       for t in st["batch_trace"]]
             res["compress"].append({
-                "config": "default" if steal else "device_only",
-                "s": dt, "mbps": len(data) / dt / 1e6, "peak_bytes": peak,
+                "config": config, "s": dt, "mbps": len(data) / dt / 1e6,
+                "peak_bytes": peak, "allocator": grown,
                 **{k: st[k] for k in ("device_blocks", "host_blocks",
                                       "stale_rows")},
-                "batches": [{k: t.get(k) for k in batch_keys}
-                            for t in st["batch_trace"]]})
+                **{f"sum_{k}": round(sum(t.get(k) or 0 for t in batches), 3)
+                   for k in ("dispatch_s", "ready_s", "expand_s")},
+                "batches": batches})
+
+    for steal, turns in ((True, 4), (False, 1)):
+        encoder._HOST_STEAL = encoder._STEALBACK = steal
+        compress_turns("default" if steal else "device_only", turns,
+                       not steal)
+    # token mode (ROADMAP F10), device-only as phase 7's child runs it:
+    # the pool reads the mode when it is made; warm the mode's device path
+    # first, then three kept turns after a cold one
+    chain_mode = encoder._DEVICE_CHAIN
+    encoder._DEVICE_CHAIN = False
+    try:
+        res["token_warm_device_s"] = encoder.warm_device(device=dev)
+        compress_turns("token_device_only", 4, False)
+    finally:
+        encoder._DEVICE_CHAIN = chain_mode
+    out = ref  # what every compress run above gave
+
     def process_state():
         """What a decode run may find left behind in the process: the
         caching allocator's reserved bytes and segments (cudaMalloc calls
@@ -2665,9 +2709,21 @@ def entropy_edge_rows():
     w = np.zeros((4, F), np.int32)
     w[2] = rng.integers(1, 256, F)
     w[3] = np.where(rng.random(F) < 0.9, 0, rng.integers(1, 256, F))
+    # look-back stress: all-zero ranks at n = N (one zero run across every
+    # tile: a look-back that meets only aggregates carries it), one
+    # nonzero then a run of N - 1, rows of n = 0, 1 and 2
+    lb = np.zeros((5, F), np.int32)
+    lb[1, 0] = 7
+    lb[2] = rng.integers(1, 256, F)  # n = 0: nothing read
+    lb[3, 0], lb[4, :2] = 0, (4, 0)
     return {"edges_8x65536": (r, ns, nu),
             "full_width_4x901120": (w, np.array([F, F - 1, F, F], np.int32),
-                                    np.array([1, 256, 256, 40], np.int32))}
+                                    np.array([1, 256, 256, 40], np.int32)),
+            "lookback_5x901120": (lb, np.array([F, F, 0, 1, 2], np.int32),
+                                  np.array([1, 30, 7, 2, 5], np.int32)),
+            "one_run_1x901120": (np.zeros((1, F), np.int32),
+                                 np.array([F], np.int32),
+                                 np.array([1], np.int32))}
 
 
 def pack_edge_args(dev) -> dict:
@@ -2694,8 +2750,29 @@ def pack_edge_args(dev) -> dict:
             rng.integers(-1, 8, (B, G)).astype(np.int32),  # clamped 0..5
             codes.astype(np.int64), lens,
             np.array([31, 0, 17, 31], np.int32))
-    return {"edges_4x100001": (*(torch.from_numpy(a).to(dev) for a in args),
-                               W)}
+    cases = {"edges_4x100001": (*(torch.from_numpy(a).to(dev)
+                                  for a in args), W)}
+    # every row with ngroups 0 (chunk 0 writes start_bit as the total)
+    cases["ngroups_0_4x100001"] = (
+        *(torch.from_numpy(a).to(dev) for a in
+          (mtfv, nm, ninuse, np.zeros(B, np.int32), args[4], args[5],
+           lens, args[7])), W)
+    # full width, codes of 20 bits: rows 0 and 2 run past W = 80384 (18
+    # million bits), row 1 (nm 60,001) and row 3 (ngroups 0) fit
+    NP = WIDTH + 1
+    G = -(-NP // 50)
+    nm = np.array([NP, 60_001, NP - 7, NP], np.int32)
+    mtfv = rng.integers(0, 200, (B, NP)).astype(np.int32)
+    lens = np.full((B, 6, 259), 20, np.int32)
+    codes = rng.integers(0, 1 << 20, lens.shape)
+    ngroups = ((nm + 49) // 50).astype(np.int32)
+    ngroups[3] = 0
+    full = (mtfv, nm, np.full(B, 198, np.int32), ngroups,
+            rng.integers(0, 6, (B, G)).astype(np.int32),
+            codes.astype(np.int64), lens, np.array([5, 0, 31, 9], np.int32))
+    cases["over_W_4x901121"] = (*(torch.from_numpy(a).to(dev)
+                                  for a in full), 80384)
+    return cases
 
 
 def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
@@ -2705,10 +2782,12 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
     tolerance 0 on every output: the text batch's MTF ranks at
     (32, 901120), the MTF ranks of the BWT of phase 19's random,
     16-value and runs blocks, deep repeats and (8, 8192) bucket (n = 0,
-    1, 2), synthetic edge rows; the packing on the arguments
-    chain_payloads gives it on each of those batches and on synthetic
-    ones.  CUDA-event times of each kernel and its plain version in
-    turns, and each kernel's device time.  Returns the two records."""
+    1, 2), synthetic edge and look-back stress rows; the packing on the
+    arguments chain_payloads gives it on each of those batches and on
+    synthetic ones; three calls a case.  The kernels a call runs (by
+    torch.profiler), CUDA-event times of each kernel and its plain
+    version in turns, and each kernel's device time.  Returns the two
+    records."""
     from lbzip2_tpu_torch.interop import M32
     from lbzip2_tpu_torch.ops import bwt2, chain, rle2
     from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
@@ -2744,28 +2823,33 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
         rle_cases[name] = tuple(up(a) for a in host)
     pack_cases.update(pack_edge_args(dev))
 
+    # three calls a case, each against the plain version: the per-call
+    # state on the card (tickets, descriptors, row counts) resets itself
     errs = {"rle2": 0, "pack": 0}
     for name, a in rle_cases.items():
-        got = rle2.rle2_hist_rows(*a)
         want = rle2.rle2_hist_plain(*a)
+        got = [rle2.rle2_hist_rows(*a) for _ in range(3)]
         torch.cuda.synchronize()
-        e = max_err_of(got, want)
+        e = max(max_err_of(g, want) for g in got)
         errs["rle2"] = max(errs["rle2"], e)
-        log(f"rle2 kernel vs plain [{name}, {tuple(a[0].shape)}]: nm "
-            f"{got[1].min().item()}..{got[1].max().item()}, max_abs_err {e}")
+        log(f"rle2 kernel vs plain [{name}, {tuple(a[0].shape)}], 3 calls: "
+            f"nm {want[1].min().item()}..{want[1].max().item()}, "
+            f"max_abs_err {e}")
         assert e == 0, f"rle2 kernel disagrees with plain on {name}"
+        del got, want
     for name, a in pack_cases.items():
-        got = chain._pack_groups(*a)
         want = chain._pack_groups_plain(*a)
+        got = [chain._pack_groups(*a) for _ in range(3)]
         torch.cuda.synchronize()
-        e = max_err_of(got, want)
+        e = max(max_err_of(g, want) for g in got)
         errs["pack"] = max(errs["pack"], e)
         past = int((want[1] > 32 * a[-1]).sum())
         log(f"pack_groups kernel vs plain [{name}, {tuple(a[0].shape)}, "
-            f"W {a[-1]}]: {past} rows past W, total bits "
+            f"W {a[-1]}], 3 calls: {past} rows past W, total bits "
             f"{want[1].min().item()}..{want[1].max().item()}, "
             f"max_abs_err {e}")
         assert e == 0, f"pack_groups kernel disagrees with plain on {name}"
+        del got, want
 
     # the text batch: neither wrapper waits for the card (no host read)
     ra, pa = rle_cases["text_32x901120"], pack_cases["text_32x901120"]
@@ -2776,6 +2860,14 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
         chain._pack_groups(*pa)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    # what a call launches: rle2_scan and the write-only rle2_tail; the
+    # output's zero fill and pack_chunks
+    ran = {"rle2": launched_kernels(lambda: rle2.rle2_hist_rows(*ra), {
+        "rle2_scan": ("rle2_scan",), "rle2_tail": ("rle2_tail",)}),
+           "pack": launched_kernels(lambda: chain._pack_groups(*pa), {
+               "pack_chunks": ("pack_chunks",),
+               "zero fill": ("FillFunctor", "Memset", "memset")})}
+    log(f"entropy kernels, device kernels of 3 calls: {json.dumps(ran)}")
     # in turns: plain, kernel, kernel, plain
     turns = {"rle2": [], "rle2_plain": [], "pack": [], "pack_plain": []}
     for kernel in (False, True, True, False):
@@ -2821,13 +2913,43 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
              "replaces": "lbzip2_tpu/ops/rle2.py:25", "launches": 0,
              "max_abs_err": errs["rle2"], "ms": mean(turns["rle2"]),
              "plain_ms": mean(turns["rle2_plain"]), "turns_ms": turns,
-             "device_us": us["rle2"], **bound(rle_bytes, lanes)},
+             "device_us": us["rle2"], "kernels_a_call": ran["rle2"],
+             **bound(rle_bytes, lanes)},
             {"name": "pack_groups", "route": "cuda",
              "source": "lbzip2_tpu_torch/csrc/pack_groups.cu",
              "replaces": "lbzip2_tpu/ops/chain.py:222", "launches": 0,
              "max_abs_err": errs["pack"], "ms": mean(turns["pack"]),
              "plain_ms": mean(turns["pack_plain"]), "W": W,
-             "device_us": us["pack"], **bound(pack_bytes, symbols)}]
+             "device_us": us["pack"], "kernels_a_call": ran["pack"],
+             **bound(pack_bytes, symbols)}]
+
+
+def launched_kernels(fn, names: dict, reps: int = 3) -> dict:
+    """The device kernels ``reps`` calls of ``fn`` ran, by torch.profiler:
+    {label: launches recorded}.  Every kernel (or memset) recorded must
+    hold one of the substrings ``names`` gives a label, each label
+    recorded at least once and at most ``reps`` times (the profiler may
+    miss the last launches, so a count below ``reps`` is no fault)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ran = {e.key: e.count for e in prof.key_averages()
+           if e.device_time_total}
+    short = {}
+    for key, count in ran.items():
+        match = [label for label, subs in names.items()
+                 if any(sub in key for sub in subs)]
+        assert match, f"a call ran {key!r}, not one of {names}"
+        short[match[0]] = short.get(match[0], 0) + count
+    assert set(short) == set(names) and \
+        all(c <= reps for c in short.values()), \
+        f"{reps} calls ran {ran}, expected each of {names} once a call"
+    return short
 
 
 def emit_inputs(D, ns, rng):

@@ -125,6 +125,34 @@ last_stats: dict | None = None  # engine split of the last compress call
 _warmed = False                 # warm_device() ran in this process
 
 
+# One stream for each (device, place among the pool's entries for that
+# device), kept from pool to pool.  The caching allocator serves a stream
+# only from blocks freed on it: on a fresh stream each pool's first batch
+# called cudaMalloc for the dispatch thread's BWT workspace and buffers
+# (8 to 9 calls a compress of the smoke's stream, none freed), and that
+# batch's dispatch took 0.05 to 0.31 s where the others took 0.01 (ROADMAP
+# F10, PERF.md section 5).  Pools that overlap share the streams and stay
+# ordered on them.
+_POOL_STREAMS: dict = {}
+_POOL_STREAMS_LOCK = threading.Lock()
+
+
+def _pool_streams(devices) -> list:
+    """The kept stream of each entry of ``devices`` (None off CUDA)."""
+    seen: dict = {}
+    out = []
+    with _POOL_STREAMS_LOCK:
+        for d in devices:
+            if d.type != "cuda":
+                out.append(None)
+                continue
+            k = seen[d] = seen.get(d, -1) + 1
+            if (d, k) not in _POOL_STREAMS:
+                _POOL_STREAMS[(d, k)] = torch.cuda.Stream(d)
+            out.append(_POOL_STREAMS[(d, k)])
+    return out
+
+
 class _InflightGate:
     """Dispatched-but-unfetched batches of every pool in the process.
 
@@ -299,9 +327,9 @@ class _TorchPool:
         self.devices = list(device) if isinstance(device, (list, tuple)) \
             else [device]
         self.chain = _DEVICE_CHAIN
-        # a stream of its own on each device (a card listed twice too)
-        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
-                        for d in self.devices]
+        # a stream of its own on each device (a card listed twice too),
+        # the same for every pool
+        self.streams = _pool_streams(self.devices)
         self._engines: list[threading.Thread] = []   # device + host threads
         self._fetcher: threading.Thread | None = None  # the device's
 

@@ -454,8 +454,11 @@ def _emit_checked(blocks, ISA, ns, ms):
 def _emit_bytes_cuda(lib, blocks, ISA, ns, ms):
     """Launch ``emit_bin`` and ``emit_place`` on the current stream
     (nothing read on the host): (bwt (B, N) uint8, primary (B,) int32).
-    Their scratch: the (B, N) uint32 bucket entries and the (row,
-    bucket) cursors, zeroed."""
+    Their scratch: the (B, N) uint32 bucket entries, carved from the
+    calling thread's held sort scratch (``_workspace``: the suffix
+    sort's kernels queued before on this stream are done with it by the
+    time the emit runs; a call allocates no 4 bytes a lane), and the
+    (row, bucket) cursors, zeroed."""
     global emit_launches
     B, N = blocks.shape
     dev = blocks.device
@@ -464,7 +467,7 @@ def _emit_bytes_cuda(lib, blocks, ISA, ns, ms):
         primary = torch.zeros(B, dtype=torch.int32, device=dev)
         if B == 0 or N == 0:
             return out, primary
-        entries = torch.empty((B, N), dtype=torch.int32, device=dev)
+        entries, _ = _workspace(dev, 4 * B * N, 0)
         cursors = torch.zeros((B, lib.lbz2t_emit_buckets(N)),
                               dtype=torch.int32, device=dev)
         err = lib.lbz2t_emit_bytes(

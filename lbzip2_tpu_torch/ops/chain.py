@@ -20,6 +20,7 @@ from lbzip2_tpu_torch import _build, native
 from lbzip2_tpu_torch.core.constants import GROUP_SIZE, MAX_TREES
 from lbzip2_tpu_torch.device import upload
 from lbzip2_tpu_torch.interop import M32
+from lbzip2_tpu_torch.ops import lookback
 from lbzip2_tpu_torch.ops.huffenc import em_chain_rows
 from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
                                           num_trees_for)
@@ -187,11 +188,13 @@ def _pack_lib():
     lib = _build.load("pack_groups")
     fn = lib.lbz2t_pack_groups
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.lbz2t_pack_scratch_ints.argtypes = [ctypes.c_int] * 2
-        lib.lbz2t_pack_scratch_ints.restype = ctypes.c_longlong
+        lib.lbz2t_pack_desc_words.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_pack_desc_words.restype = ctypes.c_longlong
+        lib.lbz2t_pack_state_ints.argtypes = [ctypes.c_int]
+        lib.lbz2t_pack_state_ints.restype = ctypes.c_longlong
     return lib
 
 
@@ -199,8 +202,10 @@ def _pack_groups_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
                       ninuse: torch.Tensor, ngroups: torch.Tensor,
                       selectors: torch.Tensor, codes: torch.Tensor,
                       lens: torch.Tensor, start_bit: torch.Tensor, W: int):
-    """Launch the CUDA kernels of ``csrc/pack_groups.cu`` on the current
-    stream (no synchronize, nothing read on the host)."""
+    """Launch the kernel of ``csrc/pack_groups.cu`` on the current stream
+    after the output's zero fill (no synchronize, nothing read on the
+    host); its chunk descriptors and ticket are the calling thread's
+    (``ops/lookback.py``)."""
     global pack_launches
     dev = mtfv.device
     rows = (nm, ninuse, ngroups, start_bit)
@@ -227,14 +232,15 @@ def _pack_groups_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
         if B == 0 or NP == 0:
             return words, start_bit.long()
         total = torch.empty(B, dtype=torch.int64, device=dev)
-        scratch = torch.empty(lib.lbz2t_pack_scratch_ints(B, NP),
-                              dtype=torch.int32, device=dev)
+        desc, state, epoch = lookback.scratch(
+            "pack_groups", dev, lib.lbz2t_pack_desc_words(B, NP),
+            lib.lbz2t_pack_state_ints(B), torch.int64)
         err = lib.lbz2t_pack_groups(
             mtfv.data_ptr(), nm.data_ptr(), ninuse.data_ptr(),
             ngroups.data_ptr(), selectors.data_ptr(), codes.data_ptr(),
             lens.data_ptr(), start_bit.data_ptr(), words.data_ptr(),
-            total.data_ptr(), scratch.data_ptr(), B, NP, W,
-            torch.cuda.current_stream(dev).cuda_stream)
+            total.data_ptr(), desc.data_ptr(), state.data_ptr(), B, NP, W,
+            epoch, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"pack_groups kernel launch failed: "
                                f"cudaError {err}")

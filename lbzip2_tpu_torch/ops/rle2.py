@@ -9,9 +9,10 @@ bijective base-2 RUNA/RUNB digits of k + 1, rank r becomes r + 1, EOB
 (ninuse + 1) terminates.  In the plain version ``clz`` becomes an
 integer bit length and the stable-sort compaction a cumsum plus scatter;
 the kernel is ``csrc/rle2.cu`` (tiles of 4096 lanes summed up as runs
-that combine associatively, then each tile emits the runs that end in
-it, counting the histogram from what it emits).  Both give JAX's output
-exactly.
+that combine associatively, in one pass: each tile takes the runs before
+it by decoupled look-back, then emits the runs that end in it, counting
+the histogram from what it emits; a second, write-only launch zeroes the
+lanes past nm).  Both give JAX's output exactly.
 
 ``rle2_hist_rows`` and ``_rle2_batch`` take the plain version only for a
 CPU tensor.  For a CUDA tensor they launch the kernel or raise.
@@ -25,6 +26,7 @@ import torch
 
 from lbzip2_tpu_torch import _build
 from lbzip2_tpu_torch.core.constants import GROUP_SIZE, MAX_ALPHA_SIZE
+from lbzip2_tpu_torch.ops import lookback
 
 WIDTH = MAX_ALPHA_SIZE + 1  # 259: symbols 0..257 + per-row dummy `as`
 _INF = 2 ** 31 - 1
@@ -126,18 +128,22 @@ def _lib():
     lib = _build.load("rle2")
     fn = lib.lbz2t_rle2
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.lbz2t_rle2_scratch_ints.argtypes = [ctypes.c_int] * 2
-        lib.lbz2t_rle2_scratch_ints.restype = ctypes.c_longlong
+        lib.lbz2t_rle2_desc_ints.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_rle2_desc_ints.restype = ctypes.c_longlong
+        lib.lbz2t_rle2_state_ints.argtypes = [ctypes.c_int]
+        lib.lbz2t_rle2_state_ints.restype = ctypes.c_longlong
     return lib
 
 
 def rle2_hist_cuda(ranks: torch.Tensor, ns: torch.Tensor,
                    ninuse: torch.Tensor):
     """Launch the CUDA kernels on the current stream (no synchronize,
-    nothing read on the host); see ``rle2_hist_rows``."""
+    nothing read on the host): ``rle2_scan``, then ``rle2_tail``; the
+    tile descriptors and counters are the calling thread's
+    (``ops/lookback.py``).  See ``rle2_hist_rows``."""
     global launches
     dev = ranks.device
     if dev.type != "cuda" or ns.device != dev or ninuse.device != dev:
@@ -159,12 +165,14 @@ def rle2_hist_cuda(ranks: torch.Tensor, ns: torch.Tensor,
         hist = torch.empty((B, WIDTH), dtype=torch.int32, device=dev)
         if B == 0:
             return mtfv, nm, hist
-        scratch = torch.empty(lib.lbz2t_rle2_scratch_ints(B, N),
-                              dtype=torch.int32, device=dev)
+        desc, state, epoch = lookback.scratch(
+            "rle2", dev, lib.lbz2t_rle2_desc_ints(B, N),
+            lib.lbz2t_rle2_state_ints(B))
         err = lib.lbz2t_rle2(ranks.data_ptr(), ns.data_ptr(),
                              ninuse.data_ptr(), mtfv.data_ptr(),
                              nm.data_ptr(), hist.data_ptr(),
-                             scratch.data_ptr(), B, N,
+                             desc.data_ptr(), state.data_ptr(), B, N,
+                             epoch,
                              torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"rle2 kernel launch failed: cudaError "

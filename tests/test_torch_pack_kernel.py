@@ -3,13 +3,22 @@
 ``ops/chain.py::_pack_groups_plain`` and the JAX package's
 ``pack_groups``, exactly.
 
-The model runs the kernel's two launches: chunks of groups (kWarps *
-kPerWarp, read from the source, and tiny ones), each group's bits from
-the length tables, a total a chunk; then every group's start bit from
-the chunk totals before it and its chunk's groups before it, its codes
-ORed into a slot of words at its own bit offset, the words the group
-covers whole stored (each exactly once, by that group alone) and its
-edge words ORed into the zeroed output, words at and past W dropped.
+The model runs the kernel's one launch after the output's zero fill,
+its CTAs in ticket order (chunk-major across the rows) one at a time
+here (``test_torch_pack_lookback.py`` interleaves them): chunks of
+groups (kThreads, a thread a group, read from the source, and tiny
+ones), each symbol read once, its (len, code) entry from the row's
+tables (the entries of the symbols 0 .. ninuse + 2 in shared memory,
+any other from device memory), each group's bits, the chunk's sum
+published as its aggregate, the chunks before it added by the look-back
+up to the first inclusive sum, its inclusive sum published; then every
+group's start bit from those and its chunk's groups before it, its
+codes packed MSB first through a 64-bit accumulator, a word out each
+time 32 bits fill: the words the group covers whole stored (each
+exactly once, by that group alone), its first word (unless it starts on
+a word) and its last partial one ORed into the zeroed output, words at
+and past W dropped; the chunk of the last valid group writes the total,
+chunks past it nothing.
 The words are compared as u32 values; the kernel and the plain version
 hand them over as int32 bit patterns.
 """
@@ -26,6 +35,7 @@ from lbzip2_tpu.ops import chain as jchain
 from lbzip2_tpu_torch.core.constants import MAX_TREES
 from lbzip2_tpu_torch.interop import to_numpy, to_torch
 from lbzip2_tpu_torch.ops import chain
+from test_torch_rle2_kernel import in_order, look_back, publish
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SRC = ROOT / "lbzip2_tpu_torch" / "csrc" / "pack_groups.cu"
@@ -37,75 +47,127 @@ def _const(name: str) -> int:
                          SRC.read_text()).group(1))
 
 
-# (groups a chunk, groups a warp in turn): the kernel's, and tiny ones
-CONFIGS = [(_const("kThreads") // 32 * _const("kPerWarp"),
-            _const("kPerWarp")), (2, 1), (6, 2)]
+# groups a chunk (a thread a group): the kernel's, and tiny ones
+CONFIGS = [_const("kThreads"), 2, 6]
+
+
+def new_state():
+    """The kernel's device state between calls: the chunk descriptors
+    (any content; epoch-tagged), the ticket (0 between calls), the
+    epoch."""
+    return {"desc": [], "ticket": 0, "epoch": 0}
 
 
 def model(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W,
-          chunk: int, per_warp: int):
-    """The kernel's two launches: (words (B, W) uint32, total (B,))."""
+          chunk: int, schedule=in_order, window: int = 32, state=None,
+          seen=None):
+    """The kernel's launch after the output's zero fill, its CTAs
+    interleaved by ``schedule``: (words (B, W) uint32, total (B,)).
+    ``seen`` collects the kinds the look-backs read, and the count of
+    entries read from device memory (symbols outside 0 .. ninuse + 2)
+    under "global"."""
     B, NP = mtfv.shape
     G = -(-NP // 50)
     chunks = -(-G // chunk)
-    slot_words = _const("kSlot")
+    st = state if state is not None else new_state()
+    st["epoch"] += 1
+    epoch = st["epoch"]
+    while len(st["desc"]) < B * chunks:
+        st["desc"].append((0, "X", None, None))
+    seen = [] if seen is None else seen
     words = np.zeros((B, W), np.uint64)
     owned = np.full((B, W), -1, np.int64)
     edged = np.zeros((B, W), bool)
     total = np.full(B, -1, np.int64)
-    for b in range(B):
+    read = np.zeros((B, max(NP, 1)), np.int64)  # symbol loads a lane
+
+    def cta(k):
+        """A CTA draws ticket k when it starts; its steps run later."""
+        assert k == st["ticket"]
+        st["ticket"] = 0 if k == B * chunks - 1 else k + 1
+        return steps(k)
+
+    def steps(k):
+        c, b = divmod(k, B)
         ng = min(max(int(ngroups[b]), 0), G)
+        cc = (ng - 1) // chunk if ng else 0
+        if c > cc:
+            return  # no valid group
         as_ = int(ninuse[b]) + 2
+        lim = min(max(as_, 0), WIDTH - 1)
         packed = ((lens[b].astype(np.int64) << 24) |
                   (codes[b].astype(np.int64) & 0xFFFFFF)).reshape(-1)
+        shared = {t * WIDTH + s: int(packed[t * WIDTH + s])
+                  for t in range(MAX_TREES) for s in range(lim + 1)}
 
         def entry(g, i):
             p = g * 50 + i
+            if p < nm[b] and p < NP:
+                read[b, p] += 1
             s = (int(mtfv[b, p]) if p < NP else 0) if p < nm[b] else as_
             tree = min(max(int(sel[b, g]), 0), MAX_TREES - 1)
+            if 0 <= s <= lim:
+                return shared[tree * WIDTH + s]
+            seen.append("global")
             return int(packed[min(max(tree * WIDTH + s, 0),
                                   MAX_TREES * WIDTH - 1)])
 
-        gbits = [sum(entry(g, i) >> 24 for i in range(50)) if g < ng else 0
-                 for g in range(G)]  # launch 1
-        csum = [sum(gbits[c * chunk:(c + 1) * chunk]) for c in range(chunks)]
-        for c in range(chunks):  # launch 2
-            base = int(start_bit[b]) + sum(csum[:c])
-            if c == chunks - 1:
-                total[b] = base + sum(gbits[c * chunk:(c + 1) * chunk])
-            for w in range(chunk // per_warp):
-                first = c * chunk + w * per_warp
-                gstart = base + sum(gbits[c * chunk:first])
-                for g in range(first, min(first + per_warp, ng)):
-                    start, bits = gstart, gbits[g]
-                    gstart += bits
-                    if not bits:
-                        continue
-                    slot = [0] * slot_words
-                    off = start & 31
-                    for i in range(50):
-                        e = entry(g, i)
-                        ln, code = e >> 24, e & 0xFFFFFF
-                        if ln:
-                            win = code << (64 - (off & 31) - ln)
-                            slot[off >> 5] |= win >> 32
-                            if (off & 31) + ln > 32:
-                                slot[(off >> 5) + 1] |= win & 0xFFFFFFFF
-                        off += ln
-                    end = start + bits
-                    wbase = start >> 5
-                    for j in range(((end - 1) >> 5) - wbase + 1):
-                        word = wbase + j
-                        if word >= W:
-                            continue
-                        assert owned[b, word] == -1, "a word stored twice"
-                        if word * 32 >= start and word * 32 + 32 <= end:
-                            assert not edged[b, word] and not words[b, word]
-                            owned[b, word] = g
-                            words[b, word] = slot[j]
-                        elif slot[j]:
-                            edged[b, word] = True
-                            words[b, word] |= slot[j]
+        groups = range(c * chunk, min((c + 1) * chunk, ng))
+        ents = {g: [entry(g, i) for i in range(50)] for g in groups}
+        gbits = {g: sum(e >> 24 for e in ents[g]) for g in groups}
+        mine = sum(gbits.values())
+        desc, base = st["desc"], b * chunks
+        if c == 0:
+            publish(desc, base, epoch, "P", mine)
+            before = 0
+        else:
+            publish(desc, base + c, epoch, "A", mine)
+            yield
+            before = yield from look_back(desc, base, c, epoch, window,
+                                          seen, lambda x, y: x + y, 0,
+                                          sum)
+            publish(desc, base + c, epoch, "P", before + mine)
+        yield
+        start0 = int(start_bit[b]) + before
+        if c == cc:
+            total[b] = start0 + mine
+
+        def put(w, v, whole, g):
+            if w >= W:
+                return
+            assert owned[b, w] == -1, "a word stored twice"
+            if whole:
+                assert not edged[b, w] and not words[b, w]
+                owned[b, w] = g
+                words[b, w] = v
+            elif v:
+                edged[b, w] = True
+                words[b, w] |= v
+
+        start = start0
+        for g in groups:  # a thread a group
+            bits = gbits[g]
+            w, nb = start >> 5, start & 31
+            start += bits
+            if not bits:
+                continue
+            whole, acc = nb == 0, 0
+            for e in ents[g]:
+                ln = e >> 24
+                if ln > 0:
+                    acc = (acc << ln | e & 0xFFFFFF) & (2 ** 64 - 1)
+                    nb += ln
+                    if nb >= 32:
+                        nb -= 32
+                        put(w, (acc >> nb) & 0xFFFFFFFF, whole, g)
+                        w += 1
+                        whole = True
+            if nb:
+                put(w, (acc << (32 - nb)) & 0xFFFFFFFF, False, g)
+
+    schedule([lambda k=k: cta(k) for k in range(B * chunks)])
+    assert st["ticket"] == 0
+    assert read.max(initial=0) <= 1, "a symbol read twice"
     return words.astype(np.uint32), total
 
 
@@ -197,9 +259,8 @@ def _check(args):
     jax_w, jax_t = _jax(args)
     np.testing.assert_array_equal(want_w, jax_w)
     np.testing.assert_array_equal(want_t, jax_t)
-    for chunk, per_warp in CONFIGS:
-        words, total = model(*(args[k] for k in ORDER), args["W"], chunk,
-                             per_warp)
+    for chunk in CONFIGS:
+        words, total = model(*(args[k] for k in ORDER), args["W"], chunk)
         np.testing.assert_array_equal(words, want_w, err_msg=f"{chunk}")
         np.testing.assert_array_equal(total, want_t)
     return want_w, want_t
@@ -241,12 +302,18 @@ def test_text_batch_through_chain_payloads():
 
 
 def test_slot_and_chunk_constants():
-    """A group's 50 codes of at most 20 bits from any bit offset touch at
-    most kSlot words, and a CTA's chunk is its warps' groups."""
-    assert _const("kSlot") >= (31 + 50 * 20 + 31) // 32 + 1
-    assert (_const("kThreads"), _const("kPerWarp"), _const("kGroup")) == \
-        (256, 8, 50)
-    assert "constexpr int kChunk = kWarps * kPerWarp;" in SRC.read_text()
+    """A CTA's chunk is a group a thread: 128, whose 6,400 symbols
+    (25.6 KB) outweigh the 2.4 KB of a text row's table entries (6 trees
+    x 33 symbols x 12 bytes) every CTA reads; a group's words sit at an
+    odd stride in shared memory, so a warp's 32 threads walking their
+    groups meet 32 distinct banks; a code of at most 24 bits into an
+    accumulator holding at most 31 bits stays within its 64."""
+    assert (_const("kThreads"), _const("kGroup")) == (128, 50)
+    text = SRC.read_text()
+    assert "constexpr int kChunk = kThreads;" in text
+    assert "constexpr int kStride = kGroup + 1;" in text
+    assert len({(t * 51) % 32 for t in range(32)}) == 32
+    assert 31 + 24 < 64
 
 
 def test_cpu_dispatch_and_both_downloads():

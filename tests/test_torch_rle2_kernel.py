@@ -3,16 +3,23 @@ against the plain ``rle2_hist_plain`` (``_rle2_plain`` + ``_flat_hist``)
 and the JAX package's ``_rle2_batch`` and the flat histogram of its
 ``_chain_mtf2`` (the per-group histogram summed over the groups).
 
-The model runs the kernel's two launches row by row: tiles of
-threads * per lanes, a thread's per lanes summed up as a Run (nonzeros,
-the zero runs before the first and after the last nonzero, the digits of
-the runs between), the tiles' Runs combined in order, then every tile
-emitting, thread by thread, the digits of each run that ends in it and
-the nonzeros' r + 1 into its buffer, the EOB from the thread of lane
-n - 1, the histogram counted from the buffer, the lanes at and past nm
-of the tile's range zeroed.  It runs at the kernel's tile (read from the
-source) and at tiny ones, so that runs cross many tile edges.  Inputs
-are made with numpy from seeds; every comparison is exact.
+The model runs the kernel's two launches: ``rle2_scan``, its CTAs in
+ticket order (tile-major across the rows) one at a time here
+(``test_torch_rle2_lookback.py`` interleaves them): tiles of threads * per
+lanes, a thread's per lanes summed up as a Run (nonzeros, the zero runs
+before the first and after the last nonzero, the digits of the runs
+between), the tile's Run published as its aggregate, the tiles before
+it combined by the look-back over their descriptors (epoch, kind,
+aggregate, inclusive) up to the first inclusive one, its inclusive Run
+published, then the tile emitting, thread by thread, the digits of each
+run that ends in it and the nonzeros' r + 1 into its buffer, the EOB
+from the thread of lane n - 1, the histogram counted as the values are
+written into the row's counts, which the row's last CTA moves out; then
+``rle2_tail`` zeroing the lanes at and past nm.  Tiles past lane n - 1's
+write nothing; the ticket, the counts and the counters end at 0.  It
+runs at the kernel's tile (read from the source) and at tiny ones, so
+that runs cross many tile edges.  Inputs are made with numpy from seeds;
+every comparison is exact.
 """
 
 import itertools
@@ -105,79 +112,182 @@ def wrap32(v: int) -> int:
     return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
-def model(ranks, ns, ninuse, threads: int, per: int):
-    """The kernel's two launches.  Returns (mtfv, nm, hist) and the runs
-    each tile emitted, (row, tile, lane the run ends at, length)."""
+def in_order(factories):
+    """The CTAs one at a time in ticket order: each finds the tile before
+    it inclusive."""
+    for make in factories:
+        for _ in make():
+            pass
+
+
+def window_reduce(vals):
+    """Warp 0's combine of a look-back window (lane i holds the tile i
+    before the nearest): the shuffle-down tree, a higher lane on the
+    left."""
+    x = list(vals)
+    d = 1
+    while d < len(x):
+        x = [combine(x[i + d], x[i]) if i + d < len(x) else x[i]
+             for i in range(len(x))]
+        d *= 2
+    return x[0]
+
+
+def look_back(desc, base, t, epoch, window, seen, combine=combine,
+              ident=IDENT, reduce=window_reduce):
+    """The prefix of tiles 0 .. t - 1 of a row from their descriptors
+    desc[base + j] = (epoch, kind, aggregate, inclusive), a window of
+    ``window`` lanes at a time, right to left, until the first inclusive
+    one; a lane waits (yields) while its tile has no descriptor of this
+    epoch.  ``seen`` collects the kinds read, "|" after each look-back."""
+    acc = ident
+    top = t - 1
+    while True:
+        idx = [top - i for i in range(window)]
+        while any(j >= 0 and desc[base + j][0] != epoch for j in idx):
+            yield  # spin
+        kinds = ["P" if j < 0 else desc[base + j][1] for j in idx]
+        seen.extend(k for j, k in zip(idx, kinds) if j >= 0)
+        vals = [ident if j < 0 else desc[base + j][3 if k == "P" else 2]
+                for j, k in zip(idx, kinds)]
+        stop = kinds.index("P") if "P" in kinds else window - 1
+        acc = combine(reduce(
+            [v if i <= stop else ident for i, v in enumerate(vals)]), acc)
+        if "P" in kinds:
+            seen.append("|")  # this look-back ends
+            return acc
+        top -= window
+
+
+def publish(desc, i, epoch, kind, value):
+    """A descriptor goes X -> A -> P (tile 0: X -> P), never back."""
+    old = desc[i]
+    assert (kind, old[1] if old[0] == epoch else "X") in (
+        ("A", "X"), ("P", "X"), ("P", "A")), (i, kind, old)
+    agg = value if kind == "A" else old[2] if old[0] == epoch else None
+    desc[i] = (epoch, kind, agg, value if kind == "P" else None)
+
+
+def new_state():
+    """The kernel's device state between calls: the descriptors (any
+    content; epoch-tagged), the ticket and the row counters and
+    histograms (0 between calls), the epoch."""
+    return {"desc": [], "ticket": 0, "rows": {}, "epoch": 0}
+
+
+def model(ranks, ns, ninuse, threads: int, per: int, schedule=in_order,
+          window: int = 32, state=None, seen=None):
+    """The kernel's launches: ``rle2_scan`` (its CTAs interleaved by
+    ``schedule``), then ``rle2_tail``.  Returns (mtfv, nm, hist) and the
+    runs each tile emitted, (row, tile, lane the run ends at, length)."""
     B, N = ranks.shape
     tile = threads * per
-    tiles = -(-(N + 1) // tile)
+    tiles = max(-(-N // tile), 1)
     slack = _const("kSlack")
     G = -(-(N + 1) // 50)
+    st = state if state is not None else new_state()
+    st["epoch"] += 1
+    epoch = st["epoch"]
+    while len(st["desc"]) < B * tiles:
+        st["desc"].append((0, "X", None, None))
+    seen = [] if seen is None else seen
     mtfv = np.full((B, N + 1), -1, np.int64)
     writes = np.zeros((B, N + 1), np.int64)
     nm_out = np.full(B, -1, np.int64)
     hist = np.full((B, WIDTH), -1, np.int64)
     events = []
-    for b in range(B):
-        n = min(max(int(ns[b]), 0), N)
-        row = [int(v) for v in ranks[b, :n]]  # lanes >= n are never read
-        hist[b] = 0  # launch 1, tile 0's CTA
-        tsum = [fold(chunk_run(row, t * tile + j * per, n, per)
-                     for j in range(threads)) if t * tile < n else IDENT
-                for t in range(tiles)]
-        prefixes = [IDENT] + list(itertools.accumulate(tsum, combine))
-        whole = prefixes[-1]
-        nm = emitted(whole) + digits(whole[2]) + 1
+    ns_c = [min(max(int(ns[b]), 0), N) for b in range(B)]
+    rows = [[int(v) for v in ranks[b, :ns_c[b]]]  # lanes >= n never read
+            for b in range(B)]
+
+    def cta(k):
+        """A CTA draws ticket k when it starts; its steps run later."""
+        assert k == st["ticket"]
+        st["ticket"] = 0 if k == B * tiles - 1 else k + 1
+        return steps(k)
+
+    def steps(k):
+        t, b = divmod(k, B)
+        n, row = ns_c[b], rows[b]
         last = n - 1 if n else 0
-        for t in range(tiles):  # launch 2
-            lane0 = t * tile
-            before = prefixes[t]
-            out0 = emitted(before)
-            closes = lane0 <= last < lane0 + tile
-            buf = []
-            if lane0 < n or closes:
-                runs = [chunk_run(row, lane0 + j * per, n, per)
-                        for j in range(threads)]
-                incl = tree_scan(runs)
-                excl = [IDENT] + incl[:-1]
-                count = emitted(combine(before, incl[-1])) - out0
-                if closes:
-                    count += digits(whole[2]) + 1
-                assert count <= tile + slack - 32
-                buf = [None] * count
-                ends = []
-                for j in range(threads):
-                    mine = combine(before, excl[j])
-                    o, run = emitted(mine) - out0, mine[2]
-                    first = lane0 + j * per
-                    for p in range(first, min(first + per, n)):
-                        if row[p] > 0:
-                            o = put_run(buf, o, run)
-                            events.append((b, t, p, run))
-                            buf[o] = wrap32(row[p] + 1)
-                            o += 1
-                            run = 0
-                        else:
-                            run += 1
-                    if closes and first <= last < first + per:
-                        o = put_run(buf, o, run)
-                        events.append((b, t, n, run))
-                        buf[o] = int(ninuse[b]) + 1
-                        o += 1
-                    ends.append(o)
-                assert None not in buf and max(ends) == count
-            mtfv[b, out0:out0 + len(buf)] = buf
-            writes[b, out0:out0 + len(buf)] += 1
-            for v in buf:
-                hist[b, min(v & 0xFFFFFFFF, WIDTH - 1)] += 1
-            hi = min(lane0 + tile, N + 1)
-            if max(lane0, nm) < hi:
-                mtfv[b, max(lane0, nm):hi] = 0
-                writes[b, max(lane0, nm):hi] += 1
-            if closes:
-                nm_out[b] = nm
-                hist[b, min(int(ninuse[b]) + 2, WIDTH - 1)] += G * 50 - nm
+        tc = last // tile
+        if t > tc:
+            return  # lanes >= n only
+        lane0 = t * tile
+        closes = t == tc
+        desc, base = st["desc"], b * tiles
+        runs = [chunk_run(row, lane0 + j * per, n, per)
+                for j in range(threads)]
+        incl = tree_scan(runs)
+        excl = [IDENT] + incl[:-1]
+        total = incl[-1]
+        if t == 0:
+            publish(desc, base, epoch, "P", total)
+            before = IDENT
+        else:
+            publish(desc, base + t, epoch, "A", total)
+            yield
+            before = yield from look_back(desc, base, t, epoch, window,
+                                          seen)
+            publish(desc, base + t, epoch, "P", combine(before, total))
+        yield
+        whole = combine(before, total)
+        nm = emitted(whole) + digits(whole[2]) + 1
+        out0 = emitted(before)
+        count = emitted(whole) - out0
+        if closes:
+            count += digits(whole[2]) + 1
+        assert count <= tile + slack - 32
+        buf = [None] * count
+        ends = []
+        # the counts as the values are written: the digits and the 2s
+        # summed (the kernel's registers), any other value one by one
+        counts = np.zeros(WIDTH, np.int64)
+        for j in range(threads):
+            mine = combine(before, excl[j])
+            o, run = emitted(mine) - out0, mine[2]
+            first = lane0 + j * per
+            for p in range(first, min(first + per, n)):
+                if row[p] > 0:
+                    o2 = put_run(buf, o, run)
+                    counts[:2] += np.bincount(buf[o:o2], minlength=2)
+                    o = o2
+                    events.append((b, t, p, run))
+                    buf[o] = wrap32(row[p] + 1)
+                    counts[min(buf[o] & 0xFFFFFFFF, WIDTH - 1)] += 1
+                    o += 1
+                    run = 0
+                else:
+                    run += 1
+            if closes and first <= last < first + per:
+                o2 = put_run(buf, o, run)
+                counts[:2] += np.bincount(buf[o:o2], minlength=2)
+                o = o2
+                events.append((b, t, n, run))
+                buf[o] = int(ninuse[b]) + 1
+                counts[min(buf[o] & 0xFFFFFFFF, WIDTH - 1)] += 1
+                o += 1
+            ends.append(o)
+        assert None not in buf and max(ends, default=0) == count
+        mtfv[b, out0:out0 + count] = buf
+        writes[b, out0:out0 + count] += 1
+        rs = st["rows"].setdefault(b, np.zeros(WIDTH + 1, np.int64))
+        rs[:WIDTH] += counts
+        if closes:
+            nm_out[b] = nm
+            rs[min(int(ninuse[b]) + 2, WIDTH - 1)] += G * 50 - nm
+        rs[WIDTH] += 1
+        if rs[WIDTH] == tc + 1:  # the row's last CTA
+            hist[b] = rs[:WIDTH]
+            rs[:] = 0
+
+    schedule([lambda k=k: cta(k) for k in range(B * tiles)])
+    for b in range(B):  # rle2_tail
+        mtfv[b, nm_out[b]:] = 0
+        writes[b, nm_out[b]:] += 1
     assert (writes == 1).all(), "a lane written twice or never"
+    assert st["ticket"] == 0 and not any(r.any() for r in
+                                         st["rows"].values())
     return (mtfv.astype(np.int32), nm_out.astype(np.int32),
             hist.astype(np.int32)), events
 
@@ -375,12 +485,20 @@ def test_tree_scan_is_the_ordered_fold():
 def test_tile_constants_and_emit_bound():
     """The kernel's tile and buffer: a tile emits at most kTile + 32
     values (its lanes, plus at most 31 digits of the one run that crosses
-    its left edge, plus the EOB), which kSlack covers."""
+    its left edge, plus the EOB), which kSlack covers, and the staging
+    buffer the values reuse holds kTile + kSlack (a thread's 16 lanes at
+    a 16-byte word of padding every 16 lanes, which spreads a
+    quarter-warp's 16-byte reads over all 32 banks)."""
     assert (_const("kThreads"), _const("kPer")) == (256, 16)
     assert _const("kSlack") >= 33
     text = SRC.read_text()
     assert "constexpr int kTile = kThreads * kPer;" in text
-    assert "int buf[kTile + kSlack]" in text
+    assert "constexpr int kStaged = kTile + kTile / 4;" in text
+    assert "return i + ((i >> 4) << 2);" in text
+    assert len({(20 * t) % 32 for t in range(8)}) == 8
+    assert "int sm[kStaged];" in text
+    assert "static_assert(kStaged >= kTile + kSlack" in text
+    assert 4096 + 4096 // 4 >= 4096 + _const("kSlack")
     # the worst tile: a run of n - 1 zeros crossing into the last tile
     N = 3 * 4096
     ranks = np.zeros((1, N), np.int32)
