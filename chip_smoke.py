@@ -223,33 +223,48 @@ Phases (any failure exits non-zero before the last line is printed):
              those batches and on synthetic rows (start bit 31, codes of
              20 bits, a dummy symbol with a length, selectors out of
              range, ngroups 0 and below G, every row at ngroups 0, rows
-             past W, at full width too); each case three times, each
-             call against the plain version (the per-call state on the
-             card resets itself); both wrappers once on the text batch
-             under torch.cuda.set_sync_debug_mode("error") (no host
-             read); the device kernels three calls run, by
-             torch.profiler (rle2_scan and rle2_tail; the zero fill and
-             pack_chunks; nothing else); CUDA-event times of both and of
-             their plain versions on the text batch in turns, and each
-             kernel's device time.  (It runs after phase 19.)  Phases 6, 16 and 17
-             assert that their paths launched both and called neither
-             plain version, phase 18 that each process launched both.
+             past W, at full width too); the packing's flat mode
+             (ops/chain.py::_pack_flat, the packing and the payload
+             download's compaction in one launch, which chain_payloads
+             runs) against the plain packing then the plain compaction
+             on every one of those packing cases, with the row ends
+             chain_payloads makes (rows past W left out), and on the text
+             batch with its first and last rows left out and F of three
+             chunks; each case three times, each call against the plain
+             version (the per-call state on the card resets itself); the
+             three wrappers once on the text batch under
+             torch.cuda.set_sync_debug_mode("error") (no host read); the
+             device kernels three calls run, by torch.profiler
+             (rle2_scan and rle2_tail; the zero fill and pack_chunks,
+             for either mode; nothing else); CUDA-event times of the
+             three and of their plain versions on the text batch in
+             turns, and each kernel's device time.  (It runs after phase
+             19.)  Phases 6, 16 and 17 assert that their paths launched
+             the RLE2, the packing and its flat mode and called no plain
+             version, phase 18 that each process launched them.
  21. emits:  the BWT's emits (csrc/bwt2_emit.cu behind ops/bwt2.py::
-             _emit_bytes, a scatter, and _emit2's run tokens), the MTF
-             kernel's byte entry with _compact_syms fused into its loads
-             (ops/mtf_pallas.py::mtf_ranks_bytes_rows) and the flat
-             payload compaction (csrc/flatten_words.cu behind
-             ops/chain.py::_flatten_words) against their plain versions,
-             tolerance 0: the emits (rows below n, zeros past n, primary;
-             run counts, tokens below the count and the capacity, zeros
-             past the count, raw below n) on the resolve loop's ISA of
-             every case of phase 19 and on designed rows under random
-             permutations (runs of 254 to 765 bytes across the token
-             tiles' edges, one run of a row, runs that touch n, counts
-             past N / 4, n = 0, 1 and 4097, full-width rows, and n = 0,
-             1, 2, S - 1, S, S + 1, 2S + 17 and N at the emit's buckets of
-             S = 16384 destinations, rows off 16-byte alignment), each ISA
-             first asserted a permutation on the lanes < n; the byte
+             _emit_bytes, a scatter, and _emit2's run tokens, a single-
+             pass scan with decoupled look-back and a write-only tail),
+             the MTF kernel's byte entry with _compact_syms fused into
+             its loads (ops/mtf_pallas.py::mtf_ranks_bytes_rows) and the
+             standalone flat payload compaction (csrc/flatten_words.cu
+             behind ops/chain.py::_flatten_words, on no path since the
+             flat pack) against their plain versions, tolerance 0: the
+             emits (rows below n, zeros past n, primary; run counts,
+             tokens below the count and the capacity, zeros past the
+             count, raw below n; the tokens three calls a case) on the
+             resolve loop's ISA of every case of phase 19 and on designed
+             rows under random permutations (runs of 254 to 765 bytes
+             across the token tiles' edges, one run of a row, runs that
+             touch n, counts past N / 4, n = 0, 1 and 4097, full-width
+             rows, n = 0, 1, 2, S - 1, S, S + 1, 2S + 17 and N at the
+             emit's buckets of S = 16384 destinations, rows off 16-byte
+             alignment, and the look-back's stress rows at (32, 901120)
+             and (8, 8192): one run of the row, runs of 255 k ending at a
+             tile edge and one lane before and after it, a run over
+             several tiles, alternating bytes past N / 4, n = 0, 1, 2),
+             each ISA first asserted a permutation on the lanes < n; the
+             byte
              entry on the text batch, every emitted batch and rows of 1
              and 256 used values with garbage past n; the compaction on
              the arguments chain_payloads gives it and on rows of 0
@@ -259,9 +274,10 @@ Phases (any failure exits non-zero before the last line is printed):
              and its library call (scatter_, gather) where one exists,
              and each kernel's device time.  (It runs after phase 20.)
              Phases 6, 16, 17 and 18 assert that their paths launched
-             the emit, the byte entry and the compaction, phase 7's
-             child the emit and the tokens, and that none ran a plain
-             twin.
+             the emit and the byte entry, phase 7's child the emit and
+             the tokens, and that none ran a plain twin; phase 6 that
+             the main path ran the flat pack and not the standalone
+             compaction.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -657,7 +673,7 @@ OPS = (("bwt2", ("_seed16", "_pass8", "_pass_in_place", "_emit_bytes")),
        ("chain", ("_compact_syms", "mtf_ranks_rows", "mtf_ranks_bytes_rows",
                   "_rle2_batch",
                   "_flat_hist", "rle2_hist_rows", "em_chain_rows",
-                  "_pack_groups", "_flatten_words")))
+                  "_pack_groups", "_pack_flat", "_flatten_words")))
 
 
 def op_table(text: bytes, batch, dev, nrows: int = ROWS) -> None:
@@ -1828,6 +1844,10 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
         calls["flatten_words_text_32x901120"] = (
             chain._flatten_words, chain._flatten_words_plain,
             flatten_args(bwt, ns, cmaps, primary.cpu().numpy()))
+    if hasattr(chain, "_pack_flat"):  # the packing and the compaction
+        calls["pack_flat_text_32x901120"] = (
+            chain._pack_flat, flat_plain,
+            flat_args(bwt, ns, cmaps, primary.cpu().numpy()))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
@@ -2382,7 +2402,7 @@ def reset_counts() -> None:
 
     mtf_pallas.launches = huffenc.em_launches = huffenc.launches = 0
     ibwt.launches = bwt2.launches = bwt2.pass_launches = 0
-    rle2.launches = chain.pack_launches = 0
+    rle2.launches = chain.pack_launches = chain.flat_launches = 0
     bwt2.emit_launches = bwt2.token_launches = 0
     mtf_pallas.bytes_launches = chain.flatten_launches = 0
 
@@ -2400,7 +2420,7 @@ def read_counts() -> dict:
             "emit_bytes": bwt2.emit_launches,
             "emit_tokens": bwt2.token_launches,
             "mtf_ranks_bytes": mtf_pallas.bytes_launches,
-            "flatten_words": chain.flatten_launches}
+            "pack_flat": chain.flat_launches}
 
 
 def sharded_phase(dev) -> dict:
@@ -2483,7 +2503,7 @@ def sharded_phase(dev) -> dict:
             shard_counts = read_counts()
             assert all(shard_counts[k] for k in (
                 "rle2_hist", "pack_groups", "emit_bytes", "emit_tokens",
-                "mtf_ranks_bytes", "flatten_words")) and \
+                "mtf_ranks_bytes", "pack_flat")) and \
                 not any(plain.values()), \
                 f"the sharded chain missed a kernel: {shard_counts}, {plain}"
     (rows, prim, tok, pay, dec), (rows1, prim1, tok1, pay1, dec1) = \
@@ -2533,7 +2553,7 @@ def engine_cards_phase(data: bytes, ref: bytes, dev) -> dict:
         counts["bwt2_seed16"] and counts["bwt2_pass8"] and \
         counts["rle2_hist"] and counts["pack_groups"] and \
         counts["emit_bytes"] and counts["mtf_ranks_bytes"] and \
-        counts["flatten_words"] and not any(plain.values()), (counts, plain)
+        counts["pack_flat"] and not any(plain.values()), (counts, plain)
     return {"cards": count, "s": dt, "batch_devs": devs, "launches": counts}
 
 
@@ -2548,8 +2568,8 @@ MH.initialize_distributed(addr, nproc, pid)
 data = open(src, "rb").read()
 a, b = MH.shard_bounds(len(data), 9, nproc, pid)
 mtf_pallas.launches = huffenc.em_launches = bwt2.launches = 0
-rle2.launches = chain.pack_launches = 0
-bwt2.emit_launches = mtf_pallas.bytes_launches = chain.flatten_launches = 0
+rle2.launches = chain.pack_launches = chain.flat_launches = 0
+bwt2.emit_launches = mtf_pallas.bytes_launches = 0
 out = MH.compress_multihost(data[a:b], 9, engine="hybrid", device=dev)
 if pid == 0:
     open(dst, "wb").write(out)
@@ -2559,7 +2579,7 @@ print(json.dumps({"pid": pid, "shard": [a, b], "mtf_ranks":
                   "pack_groups": chain.pack_launches,
                   "emit_bytes": bwt2.emit_launches,
                   "mtf_ranks_bytes": mtf_pallas.bytes_launches,
-                  "flatten_words": chain.flatten_launches,
+                  "pack_flat": chain.flat_launches,
                   "stream": out is not None}), flush=True)
 torch.distributed.destroy_process_group()
 """
@@ -2622,31 +2642,51 @@ def multihost_phase(data: bytes, dev) -> dict:
     assert bz2.decompress(stream) == prefix
     assert all(r["mtf_ranks"] and r["em_chain"] and r["bwt2"] and
                r["rle2_hist"] and r["pack_groups"] and r["emit_bytes"] and
-               r["mtf_ranks_bytes"] and r["flatten_words"] for r in recs), \
+               r["mtf_ranks_bytes"] and r["pack_flat"] for r in recs), \
         f"a process's shard missed the card's kernels: {recs}"
     return {"s": wall, "processes": recs}
 
 
-def pack_args(bwt, ns, cmaps, idxs) -> tuple:
-    """The arguments chain_payloads gives _pack_groups on a BWT batch
-    (bwt on the card; ns, cmaps, idxs on the host), and that call's
-    output."""
+def chain_call_args(bwt, ns, cmaps, idxs) -> dict:
+    """The packing calls chain_payloads makes on a BWT batch (bwt on the
+    card; ns, cmaps, idxs on the host), their arguments by name:
+    "_pack_flat" on its flat branch (the packing's arguments, the rows'
+    word ends, F); "_pack_groups" and "_flatten_words" in a checkout from
+    before the flat pack."""
     from lbzip2_tpu_torch.ops import chain
 
+    names = [k for k in ("_pack_flat", "_pack_groups", "_flatten_words")
+             if hasattr(chain, k)]
+    real = {k: getattr(chain, k) for k in names}
     got = {}
-    real = chain._pack_groups
 
-    def spy(*a):
-        got["args"], got["out"] = a, real(*a)
-        return got["out"]
+    def spy(name):
+        def call(*a):
+            got[name] = a
+            return real[name](*a)
+        return call
 
-    chain._pack_groups = spy
     try:
+        for k in names:
+            setattr(chain, k, spy(k))
         chain.chain_payloads(bwt, ns, cmaps, np.asarray(idxs, np.int32),
                              np.zeros(len(ns), np.uint32))
     finally:
-        chain._pack_groups = real
-    return got["args"], got["out"]
+        for k, fn in real.items():
+            setattr(chain, k, fn)
+    return got
+
+
+def pack_args(bwt, ns, cmaps, idxs) -> tuple:
+    """The packing arguments chain_payloads gives _pack_groups (or the
+    first nine of _pack_flat's) on a BWT batch, and _pack_groups' output
+    on them."""
+    from lbzip2_tpu_torch.ops import chain
+
+    got = chain_call_args(bwt, ns, cmaps, idxs)
+    args = got["_pack_flat"][:9] if "_pack_flat" in got else \
+        got["_pack_groups"]
+    return args, chain._pack_groups(*args)
 
 
 @contextlib.contextmanager
@@ -2775,6 +2815,16 @@ def pack_edge_args(dev) -> dict:
     return cases
 
 
+def flat_ends(wcnt, dev) -> tuple:
+    """The rows' inclusive word ends on the card and the F slots of whole
+    FLAT_CHUNK chunks that chain_payloads takes for word counts wcnt."""
+    from lbzip2_tpu_torch.ops import chain
+
+    ends = np.cumsum(wcnt).astype(np.int32)
+    F = -(-int(ends[-1]) // chain.FLAT_CHUNK) * chain.FLAT_CHUNK
+    return torch.from_numpy(ends).to(dev), F
+
+
 def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
     """20. The RLE2 kernel (csrc/rle2.cu behind ops/rle2.py::
     rle2_hist_rows) and the group-packing kernel (csrc/pack_groups.cu
@@ -2784,10 +2834,14 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
     16-value and runs blocks, deep repeats and (8, 8192) bucket (n = 0,
     1, 2), synthetic edge and look-back stress rows; the packing on the
     arguments chain_payloads gives it on each of those batches and on
-    synthetic ones; three calls a case.  The kernels a call runs (by
-    torch.profiler), CUDA-event times of each kernel and its plain
-    version in turns, and each kernel's device time.  Returns the two
-    records."""
+    synthetic ones, and its flat mode (ops/chain.py::_pack_flat, what
+    chain_payloads runs) against the plain packing then the plain
+    compaction on each of them, with the row ends chain_payloads makes
+    (rows past W left out) and on the text batch with its first and last
+    rows left out and F of three chunks; three calls a case.  The kernels
+    a call runs (by torch.profiler), CUDA-event times of each kernel and
+    its plain version in turns, and each kernel's device time.  Returns
+    the three records (RLE2, packing, flat packing)."""
     from lbzip2_tpu_torch.interop import M32
     from lbzip2_tpu_torch.ops import bwt2, chain, rle2
     from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
@@ -2802,8 +2856,8 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
 
     bwt, ns_h, cmaps_h, primary = batch
     rle_cases = {"text_32x901120": ranks_of(bwt, up(ns_h), up(cmaps_h))}
-    pack_cases = {"text_32x901120": pack_args(
-        bwt, ns_h, cmaps_h, primary.cpu().numpy())[0]}
+    flat_cases = {"text_32x901120": flat_args(bwt, ns_h, cmaps_h,
+                                              primary.cpu().numpy())}
     for name, host in bwt2_cases(data, text).items():
         if name == "text_32x901120":
             continue
@@ -2817,11 +2871,27 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
         full = torch.zeros(rows.shape, dtype=torch.uint8, device=dev)
         full[up(kept)] = rows_k[0]
         rle_cases[name] = ranks_of(full, up(ns), up(cm))
-        pack_cases[name] = pack_args(rows_k[0], ns[kept], cm[kept],
-                                     rows_k[1].cpu().numpy())[0]
+        flat_cases[name] = flat_args(rows_k[0], ns[kept], cm[kept],
+                                     rows_k[1].cpu().numpy())
     for name, host in entropy_edge_rows().items():
         rle_cases[name] = tuple(up(a) for a in host)
+    pack_cases = {name: a[:9] for name, a in flat_cases.items()}
     pack_cases.update(pack_edge_args(dev))
+    # the flat pack on every packing case: the word ends chain_payloads
+    # makes from the totals (a row past W left out), F in whole chunks;
+    # and the text batch with its first and last rows left out, F of
+    # three chunks
+    for name, a in pack_cases.items():
+        if name not in flat_cases:
+            total = chain._pack_groups_plain(*a)[1].cpu().numpy()
+            wcnt = np.where(total <= 32 * a[8], (total + 31) // 32, 0)
+            flat_cases[name] = (*a, *flat_ends(wcnt, dev))
+    text = flat_cases["text_32x901120"]
+    wcnt = np.diff(text[9].cpu().numpy(), prepend=0)
+    wcnt[[0, -1]] = 0
+    ends = flat_ends(wcnt, dev)[0]
+    flat_cases["text_first_last_out_3_chunks"] = (
+        *text[:9], ends, 3 * chain.FLAT_CHUNK)
 
     # three calls a case, each against the plain version: the per-call
     # state on the card (tickets, descriptors, row counts) resets itself
@@ -2850,14 +2920,30 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
             f"max_abs_err {e}")
         assert e == 0, f"pack_groups kernel disagrees with plain on {name}"
         del got, want
+    errs["flat"] = 0
+    for name, a in flat_cases.items():
+        want = flat_plain(*a)
+        got = [chain._pack_flat(*a) for _ in range(3)]
+        torch.cuda.synchronize()
+        e = max(max_err_of(g, want) for g in got)
+        errs["flat"] = max(errs["flat"], e)
+        wcnt = np.diff(a[9].cpu().numpy(), prepend=0)
+        log(f"pack_groups flat mode vs plain [{name}, "
+            f"{tuple(a[0].shape)}, W {a[8]}, F {a[10]}], 3 calls: rows "
+            f"left out {int((wcnt == 0).sum())}, flat words "
+            f"{int(a[9][-1])}, max_abs_err {e}")
+        assert e == 0, f"the flat pack disagrees with plain on {name}"
+        del got, want
 
     # the text batch: neither wrapper waits for the card (no host read)
     ra, pa = rle_cases["text_32x901120"], pack_cases["text_32x901120"]
+    fa = flat_cases["text_32x901120"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         rle2.rle2_hist_rows(*ra)
         chain._pack_groups(*pa)
+        chain._pack_flat(*fa)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     # what a call launches: rle2_scan and the write-only rle2_tail; the
@@ -2866,23 +2952,30 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
         "rle2_scan": ("rle2_scan",), "rle2_tail": ("rle2_tail",)}),
            "pack": launched_kernels(lambda: chain._pack_groups(*pa), {
                "pack_chunks": ("pack_chunks",),
+               "zero fill": ("FillFunctor", "Memset", "memset")}),
+           "flat": launched_kernels(lambda: chain._pack_flat(*fa), {
+               "pack_chunks": ("pack_chunks",),
                "zero fill": ("FillFunctor", "Memset", "memset")})}
     log(f"entropy kernels, device kernels of 3 calls: {json.dumps(ran)}")
     # in turns: plain, kernel, kernel, plain
-    turns = {"rle2": [], "rle2_plain": [], "pack": [], "pack_plain": []}
+    turns = {"rle2": [], "rle2_plain": [], "pack": [], "pack_plain": [],
+             "flat": [], "flat_plain": []}
     for kernel in (False, True, True, False):
         if kernel:
             turns["rle2"].append(cuda_ms(lambda: rle2.rle2_hist_rows(*ra),
                                          20))
             turns["pack"].append(cuda_ms(lambda: chain._pack_groups(*pa),
                                          20))
+            turns["flat"].append(cuda_ms(lambda: chain._pack_flat(*fa), 20))
         else:
             turns["rle2_plain"].append(cuda_ms(
                 lambda: rle2.rle2_hist_plain(*ra), 3))
             turns["pack_plain"].append(cuda_ms(
                 lambda: chain._pack_groups_plain(*pa), 3))
+            turns["flat_plain"].append(cuda_ms(lambda: flat_plain(*fa), 3))
     us = {"rle2": device_us(lambda: rle2.rle2_hist_rows(*ra)),
-          "pack": device_us(lambda: chain._pack_groups(*pa))}
+          "pack": device_us(lambda: chain._pack_groups(*pa)),
+          "flat": device_us(lambda: chain._pack_flat(*fa))}
     log(f"entropy kernels, (32, {WIDTH}) text batch, ms in turns: "
         f"{json.dumps(turns)}; device us {json.dumps(us)}")
 
@@ -2901,9 +2994,12 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
     pack_bytes = (4 * (read + int(ng.sum()) + 4 * B + lens.numel()) +
                   8 * codes.numel() + 4 * B * W + 8 * B)
     symbols = 50 * int(ng.sum())
+    # the flat mode: the same reads and the row ends in; the F slots out
+    flat_bytes = pack_bytes - 4 * B * W - 8 * B + 4 * B + 4 * fa[10]
     log(f"entropy kernels' bytes: rle2 {rle_bytes} ({lanes} lanes below "
         f"n), pack_groups {pack_bytes} ({read} symbols read, "
-        f"{int(ng.sum())} groups, W {W})")
+        f"{int(ng.sum())} groups, W {W}), flat mode {flat_bytes} (F "
+        f"{fa[10]})")
 
     def mean(x):
         return sum(x) / len(x)
@@ -2921,7 +3017,14 @@ def entropy_phase(data: bytes, text: bytes, batch, dev) -> list:
              "max_abs_err": errs["pack"], "ms": mean(turns["pack"]),
              "plain_ms": mean(turns["pack_plain"]), "W": W,
              "device_us": us["pack"], "kernels_a_call": ran["pack"],
-             **bound(pack_bytes, symbols)}]
+             **bound(pack_bytes, symbols)},
+            {"name": "pack_groups_flat", "route": "cuda",
+             "source": "lbzip2_tpu_torch/csrc/pack_groups.cu",
+             "replaces": "lbzip2_tpu/ops/chain.py:222, :362", "launches": 0,
+             "max_abs_err": errs["flat"], "ms": mean(turns["flat"]),
+             "plain_ms": mean(turns["flat_plain"]), "F": fa[10],
+             "device_us": us["flat"], "kernels_a_call": ran["flat"],
+             **bound(flat_bytes, symbols)}]
 
 
 def launched_kernels(fn, names: dict, reps: int = 3) -> dict:
@@ -2975,8 +3078,9 @@ def emit_inputs(D, ns, rng):
 
 def emit_edge_rows() -> dict:
     """Designed BWT rows for the emits, name -> (D, ns) on the host: runs
-    of 254, 255, 256, 510 and 511 bytes across the token kernels' tile
-    edges (every 4096 lanes) at several offsets, a run from a tile's
+    of 254, 255, 256, 510 and 511 bytes across every multiple of 4096
+    lanes (the token scan's tile edges, every 8192 lanes, among them) at
+    several offsets, a run from a tile's
     first lane, one run of the whole row, a run that touches n, a random
     row whose run count passes N / 4, n = 0, 1 and 4097; at full width a
     row of one run, a random row, a row of runs of exactly 255 and a row
@@ -3013,6 +3117,47 @@ def emit_edge_rows() -> dict:
             "full_width_4x901120": (W, np.array([F, F, F, 900000],
                                                 np.int32)),
             "edges_buckets_8x49160": (K, kn)}
+
+
+def token_stress_rows() -> dict:
+    """Designed BWT rows for the token scan's look-back, name -> (D, ns)
+    on the host, at the full width and at the (8, 8192) bucket: one run
+    of the whole row (n = N); runs of exactly 255 k lanes that end at
+    every multiple of 4096 lanes (the tile edges, every 8192 lanes, among
+    them), one lane before it and one lane after it; a run longer than 255 over several tiles; alternating bytes,
+    whose run count passes N / 4; n = 0, 1 and 2 (n = 0 and 2 in the
+    bucket); at the full width also random rows of 2 and 16 values and
+    runs, and a row of runs of 255 that ends at n = 900,000."""
+    T = 4096
+    out = {}
+    for B, N in ((ROWS, WIDTH), (8, 8192)):
+        rng = np.random.default_rng(N)
+        D = np.repeat(rng.integers(0, 16, (B, N // 4 + 1)).astype(np.uint8),
+                      4, axis=1)[:, :N]
+        D[:, ::3] ^= rng.integers(0, 2, (B, -(-N // 3))).astype(np.uint8)
+        ns = np.full(B, N, np.int32)
+        D[0] = 7  # one run of the whole row
+        for r, shift in ((1, 0), (2, -1), (3, 1)):
+            p = 0
+            for k, edge in enumerate(range(T, N, T)):
+                L = 255 * (k % 3 + 1)
+                lo = edge + shift - L
+                if lo <= p:
+                    continue
+                D[r, lo:lo + L] = D[r, lo - 1] ^ 1
+                D[r, lo + L] = D[r, lo] ^ 2
+                p = lo + L + 1
+        D[4, 5:min(5 + 3 * T + 600, N - 7)] = 4  # over several tiles
+        D[5] = np.arange(N) % 2 + 30  # run counts past N / 4
+        if B == ROWS:
+            ns[6:9] = 0, 1, 2
+            D[9] = rng.integers(0, 2, N) + 60
+            D[10] = np.repeat(np.arange(N // 255 + 1) % 2 + 40, 255)[:N]
+            ns[10] = 900_000
+        else:
+            ns[6:8] = 0, 2
+        out[f"tok_stress_{B}x{N}"] = (D, ns)
+    return out
 
 
 def assert_permutation(isa, ns, name: str) -> None:
@@ -3059,24 +3204,32 @@ def emit_errs(got, want, ns) -> dict:
 
 
 def flatten_args(bwt, ns, cmaps, idxs) -> tuple:
-    """The arguments chain_payloads gives _flatten_words on a BWT batch
-    (bwt on the card; ns, cmaps, idxs on the host)."""
+    """The _flatten_words arguments of the compaction chain_payloads makes
+    on a BWT batch (bwt on the card; ns, cmaps, idxs on the host): its
+    own call's, or, where the flat pack makes the compaction, the words
+    _pack_groups packs from the same arguments with the flat pack's row
+    ends and F."""
     from lbzip2_tpu_torch.ops import chain
 
-    got = {}
-    real = chain._flatten_words
+    got = chain_call_args(bwt, ns, cmaps, idxs)
+    if "_pack_flat" not in got:
+        return got["_flatten_words"]
+    a = got["_pack_flat"]
+    return chain._pack_groups(*a[:9])[0], a[9], a[10]
 
-    def spy(*a):
-        got["args"] = a
-        return real(*a)
 
-    chain._flatten_words = spy
-    try:
-        chain.chain_payloads(bwt, ns, cmaps, np.asarray(idxs, np.int32),
-                             np.zeros(len(ns), np.uint32))
-    finally:
-        chain._flatten_words = real
-    return got["args"]
+def flat_args(bwt, ns, cmaps, idxs) -> tuple:
+    """The arguments chain_payloads gives _pack_flat on a BWT batch."""
+    return chain_call_args(bwt, ns, cmaps, idxs)["_pack_flat"]
+
+
+def flat_plain(*a):
+    """The flat pack's plain version: the plain packing, then the plain
+    compaction."""
+    from lbzip2_tpu_torch.ops import chain
+
+    return chain._flatten_words_plain(chain._pack_groups_plain(*a[:9])[0],
+                                      a[9], a[10])
 
 
 def flatten_edge_args(dev) -> dict:
@@ -3134,7 +3287,8 @@ def emits_phase(data: bytes, text: bytes, batch, dev) -> list:
         rows, ns, ms = (up(a) for a in host[:3])
         emit_cases[name] = (rows, bwt2._resolve_loop(rows, ns), ns, ms)
     rng = np.random.default_rng(24)
-    for name, (D, ns) in emit_edge_rows().items():
+    for name, (D, ns) in {**emit_edge_rows(),
+                          **token_stress_rows()}.items():
         emit_cases[name] = tuple(up(a) for a in emit_inputs(D, ns, rng))
     mtf_cases = {"text_32x901120": (batch[0], up(batch[2]), up(batch[1]))}
     flat_cases = {}
@@ -3143,9 +3297,13 @@ def emits_phase(data: bytes, text: bytes, batch, dev) -> list:
         got, want = bwt2._emit_bytes(*a), bwt2._emit_bytes_plain(*a)
         torch.cuda.synchronize()
         held("emit_bytes", name, emit_errs(got, want, a[2]))
-        got2, want2 = bwt2._emit2(*a), bwt2._emit2_plain(*a)
-        torch.cuda.synchronize()
-        held("emit_tokens", name, emit_errs(got2, want2, a[2]))
+        # three calls: the scan's per-call state resets itself
+        want2 = bwt2._emit2_plain(*a)
+        for call in range(3):
+            got2 = bwt2._emit2(*a)
+            torch.cuda.synchronize()
+            held("emit_tokens", f"{name}, call {call}",
+                 emit_errs(got2, want2, a[2]))
         log(f"  {name}: run counts {got2[2].tolist()[:8]}.., rows over the "
             f"token capacity {int((got2[2] > got2[0].shape[1] * 2).sum())}")
         ns_h = a[2].cpu().numpy()
@@ -3155,7 +3313,7 @@ def emits_phase(data: bytes, text: bytes, batch, dev) -> list:
             cm[r, np.unique(bwt_h[r, :ns_h[r]])] = 1
         mtf_cases.setdefault(name, (got[0], up(cm), a[2]))
         if name != "text_32x901120" and not name.startswith(
-                ("edges", "full")):
+                ("edges", "full", "tok_stress")):
             kept = np.nonzero(ns_h > 0)[0]
             flat_cases[name] = flatten_args(
                 got[0][up(kept)].contiguous(), ns_h[kept], cm[kept],
@@ -3371,9 +3529,13 @@ def main(argv=None) -> int:
     crc_record["smoke_launches"] = crc.launches
     bitpack_record["smoke_launches"] = bitpack.launches
     seed_record, pass_record = bwt2_phase(data, text, dev)
-    rle2_record, pack_record = entropy_phase(data, text, text_batch, dev)
+    rle2_record, pack_record, flat_record = entropy_phase(
+        data, text, text_batch, dev)
     emit_record, tokens_record, mtf_bytes_record, flatten_record = \
         emits_phase(data, text, text_batch, dev)
+    # the standalone compaction is on no path since the flat pack: its
+    # launches are phase 21's
+    flatten_record["smoke_launches"] = chain.flatten_launches
     if args.measure:
         op_table(text, text_batch, dev)
     del text_batch, text_h, text_args
@@ -3399,7 +3561,7 @@ def main(argv=None) -> int:
     mtf_pallas.launches = huffenc.launches = huffenc.em_launches = 0
     crc.launches = bitpack.launches = 0
     bwt2.launches = bwt2.pass_launches = 0
-    rle2.launches = chain.pack_launches = 0
+    rle2.launches = chain.pack_launches = chain.flat_launches = 0
     bwt2.emit_launches = bwt2.token_launches = 0
     mtf_pallas.bytes_launches = chain.flatten_launches = 0
     t0 = time.time()
@@ -3409,6 +3571,7 @@ def main(argv=None) -> int:
     emit_record["launches"] = bwt2.emit_launches
     mtf_bytes_record["launches"] = mtf_pallas.bytes_launches
     flatten_record["launches"] = chain.flatten_launches
+    flat_record["launches"] = chain.flat_launches
     chain_token_launches = bwt2.token_launches
     launches, mstep_launches, em_launches = \
         mtf_pallas.launches, huffenc.launches, huffenc.em_launches
@@ -3429,7 +3592,8 @@ def main(argv=None) -> int:
         f"passes {pass_record['launches']} on the kernels, RLE2 "
         f"{rle2_record['launches']} and packing {pack_record['launches']} "
         f"launches, emit {emit_record['launches']}, MTF byte entry "
-        f"{mtf_bytes_record['launches']}, flat compaction "
+        f"{mtf_bytes_record['launches']}, flat pack "
+        f"{flat_record['launches']}, standalone compaction "
         f"{flatten_record['launches']}, token emit {chain_token_launches}")
 
     def log_batches(stats):
@@ -3468,9 +3632,10 @@ def main(argv=None) -> int:
         em_launches, "a chain batch missed the RLE2 or packing kernel"
     assert mtf_bytes_record["launches"] == em_launches and \
         emit_record["launches"] >= em_launches and \
-        flatten_record["launches"] > 0 and chain_token_launches == 0, \
+        flat_record["launches"] == em_launches and \
+        flatten_record["launches"] == 0 and chain_token_launches == 0, \
         "a chain batch missed the emit, the MTF byte entry or the flat " \
-        "compaction, or ran the token emit"
+        "pack, or ran the standalone compaction or the token emit"
     alive = [t.name for t in threading.enumerate()
              if t.name.startswith("lbz2-")]
     assert not alive, f"engine threads outlived compress: {alive}"
@@ -3534,7 +3699,7 @@ def main(argv=None) -> int:
                                   ibwt_record, lengths_record, em_record,
                                   crc_record, bitpack_record, seed_record,
                                   pass_record, rle2_record, pack_record,
-                                  emit_record, tokens_record,
+                                  flat_record, emit_record, tokens_record,
                                   mtf_bytes_record, flatten_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

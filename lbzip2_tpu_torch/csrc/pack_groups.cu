@@ -42,6 +42,20 @@
 //               bits past the row's total stay 0.  The chunk of the
 //               row's last valid group (chunk 0 when ngroups is 0)
 //               writes the row's total; chunks past it write nothing.
+//   flat mode   (lbz2t_pack_flat) the same launch stores the payload
+//               download's compaction as it packs: the function
+//               lbzip2_tpu/ops/chain.py::_flatten_words (:362) of
+//               pack_groups' words, as _flatten_download (:380) composes
+//               them.  Given each row's inclusive word end ends[r] and
+//               its count wcnt[r] = ends[r] - ends[r - 1], a row stores
+//               word w at flat[ends[r] - wcnt[r] + w] for w < wcnt[r]
+//               (put's W check made per row), into a zero-filled (F,)
+//               output; a row of wcnt 0 (it does not fit) writes nothing
+//               and its CTAs stop at once.  Neighbouring rows never share
+//               a flat word, so edge words keep their atomicOr.  This
+//               replaces a (B, W) words array, its zero fill and a second
+//               launch that read the live words back (csrc/
+//               flatten_words.cu, which stays for _flatten_words).
 //
 // The chunk is kChunk = 128 groups (6,400 symbols, 25.6 KB of shared
 // memory at a stride of 51 words a group, so a thread's walk over its
@@ -64,7 +78,8 @@
 // (32, 901121) text batch (nm 347,809 to 351,572 a row, W = 80384) that
 // is 44.7 MB of symbols, 0.9 MB of selectors and 0.6 MB of tables read
 // and 10.3 MB of words written, 56.5 MB in all: 0.0169 ms at 3.35 TB/s
-// (chip_smoke.py, phase 20).  A group is a thread's sequential walk:
+// (chip_smoke.py, phase 20).  The flat mode writes the F flat words in
+// place of the (B, W) ones.  A group is a thread's sequential walk:
 // a warp packs 32 groups at once with a few instructions a code, where a
 // warp a group would spend two scans and shared atomics on each.
 //
@@ -128,10 +143,10 @@ __device__ __forceinline__ int lookup(const int* tab, int tree, int sym,
 
 // a word of the group's bits into the output: stored when the group
 // covers it whole, else ORed (an edge word, shared with a neighbour);
-// nothing at or past W
+// nothing at or past the row's row_words words
 __device__ __forceinline__ void put(unsigned* out, int w, unsigned v,
-                                    bool whole, int W) {
-  if (w >= W) return;
+                                    bool whole, int row_words) {
+  if (w >= row_words) return;
   if (whole)
     out[w] = v;
   else if (v)
@@ -189,9 +204,10 @@ __global__ void __launch_bounds__(kThreads)
                 const int* __restrict__ ngroups, const int* __restrict__ sel,
                 const long long* __restrict__ codes,
                 const int* __restrict__ lens,
-                const int* __restrict__ start_bit, int B, int NP, int G,
-                int chunks, int W, int epoch, unsigned* __restrict__ words,
-                long long* __restrict__ total,
+                const int* __restrict__ start_bit,
+                const int* __restrict__ ends, int B, int NP, int G,
+                int chunks, int W, int F, int epoch,
+                unsigned* __restrict__ words, long long* __restrict__ total,
                 unsigned long long* __restrict__ desc,
                 int* __restrict__ ticket) {
   __shared__ int ent[kChunk * kStride];  // symbols, then their entries
@@ -208,6 +224,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const int c = s_ticket / B, b = s_ticket % B;
+  // the row's words: words[b, :W], or in the flat mode flat[start, end)
+  unsigned* out = words + (size_t)b * W;
+  int row_words = W;
+  if (ends) {
+    const int start = b ? ends[b - 1] : 0;
+    row_words = min(ends[b], F) - start;
+    if (row_words <= 0) return;  // the row does not fit: no word to write
+    out = words + start;
+  }
   const int ng = min(max(ngroups[b], 0), G);
   const int cc = ng ? (ng - 1) / kChunk : 0;  // the row's last chunk
   if (c > cc) return;  // no valid group: its words stay 0
@@ -277,14 +302,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const int base = start_bit[b] + (int)s_before;
-  if (c == cc && tid == 0) total[b] = (long long)base + sum;
+  if (total && c == cc && tid == 0) total[b] = (long long)base + sum;
   if (!bits) return;  // no bit, or no valid group
 
   // a thread packs its group's codes MSB first into 32-bit words: the
   // first word is the group's own only when it starts on a word, the
   // last partial one is shared with the next group
   const int start = base + (int)before_warp + incl - bits;
-  unsigned* out = words + (size_t)b * W;
   int w = start >> 5, nb = start & 31;  // bits of the word in acc
   bool whole = nb == 0;
   unsigned long long acc = 0;
@@ -296,12 +320,12 @@ __global__ void __launch_bounds__(kThreads)
       nb += len;
       if (nb >= 32) {
         nb -= 32;
-        put(out, w++, (unsigned)(acc >> nb), whole, W);
+        put(out, w++, (unsigned)(acc >> nb), whole, row_words);
         whole = true;
       }
     }
   }
-  if (nb) put(out, w, (unsigned)(acc << (32 - nb)), false, W);
+  if (nb) put(out, w, (unsigned)(acc << (32 - nb)), false, row_words);
 }
 
 }  // namespace
@@ -315,6 +339,31 @@ extern "C" long long lbz2t_pack_desc_words(int B, int NP) {
 }
 extern "C" long long lbz2t_pack_state_ints(int B) { return B > 0 ? 1 : 0; }
 
+namespace {
+
+int launch(const void* mtfv, const void* nm, const void* ninuse,
+           const void* ngroups, const void* sel, const void* codes,
+           const void* lens, const void* start_bit, const void* ends,
+           void* words, void* total, void* desc, void* state, int B, int NP,
+           int W, int F, int epoch, void* stream) {
+  if (B <= 0 || NP <= 0 || W < 0 || F < 0 || epoch <= 0 ||
+      epoch >= (1 << 29))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = groups_of(NP), chunks = chunks_of(NP);
+  pack_chunks<<<B * chunks, kThreads, 0, s>>>(
+      static_cast<const int*>(mtfv), static_cast<const int*>(nm),
+      static_cast<const int*>(ninuse), static_cast<const int*>(ngroups),
+      static_cast<const int*>(sel), static_cast<const long long*>(codes),
+      static_cast<const int*>(lens), static_cast<const int*>(start_bit),
+      static_cast<const int*>(ends), B, NP, G, chunks, W, F, epoch,
+      static_cast<unsigned*>(words), static_cast<long long*>(total),
+      static_cast<unsigned long long*>(desc), static_cast<int*>(state));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // mtfv (B, NP), nm, ninuse, ngroups (B,), sel (B, ceil(NP / 50)), lens
 // (B, 6, 259) and start_bit (B,) int32, codes (B, 6, 259) int64 in;
 // words (B, W) int32 zeroed and total (B,) int64 out; desc and state as
@@ -327,17 +376,24 @@ extern "C" int lbz2t_pack_groups(const void* mtfv, const void* nm,
                                  void* words, void* total, void* desc,
                                  void* state, int B, int NP, int W,
                                  int epoch, void* stream) {
-  if (B <= 0 || NP <= 0 || W < 0 || epoch <= 0 || epoch >= (1 << 29))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = groups_of(NP), chunks = chunks_of(NP);
-  pack_chunks<<<B * chunks, kThreads, 0, s>>>(
-      static_cast<const int*>(mtfv), static_cast<const int*>(nm),
-      static_cast<const int*>(ninuse), static_cast<const int*>(ngroups),
-      static_cast<const int*>(sel), static_cast<const long long*>(codes),
-      static_cast<const int*>(lens), static_cast<const int*>(start_bit), B,
-      NP, G, chunks, W, epoch, static_cast<unsigned*>(words),
-      static_cast<long long*>(total),
-      static_cast<unsigned long long*>(desc), static_cast<int*>(state));
-  return (int)cudaGetLastError();
+  return launch(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit,
+                nullptr, words, total, desc, state, B, NP, W, 0, epoch,
+                stream);
+}
+
+// The flat mode: the inputs of lbz2t_pack_groups and ends (B,) int32, the
+// rows' inclusive word ends (non-decreasing, each row's count at most W);
+// flat (F,) int32 zeroed out, the words of row r at [ends[r - 1],
+// ends[r]) (from 0 for row 0), slots at and past F dropped.
+extern "C" int lbz2t_pack_flat(const void* mtfv, const void* nm,
+                               const void* ninuse, const void* ngroups,
+                               const void* sel, const void* codes,
+                               const void* lens, const void* start_bit,
+                               const void* ends, void* flat, void* desc,
+                               void* state, int B, int NP, int W, int F,
+                               int epoch, void* stream) {
+  if (!ends) return (int)cudaErrorInvalidValue;
+  return launch(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit,
+                ends, flat, nullptr, desc, state, B, NP, W, F, epoch,
+                stream);
 }

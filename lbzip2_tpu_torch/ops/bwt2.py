@@ -29,8 +29,9 @@ and reads nothing there.
 The emits run ``csrc/bwt2_emit.cu`` for a CUDA tensor: ``_emit_bytes``
 scatters each lane's previous byte to its ISA (a permutation of [0, n)
 on the lanes < n once a pass has run) through buckets of 16384
-destinations (``emit_bin`` then ``emit_place``), ``_emit2`` then counts
-and writes the run tokens over tiles of 4096 lanes.  For a CPU tensor
+destinations (``emit_bin`` then ``emit_place``), ``_emit2`` then writes
+the run tokens in one pass over tiles of 8192 lanes (a scan with decoupled
+look-back, then a write-only tail past the count).  For a CPU tensor
 they run JAX's sort formulation (``_emit_bytes_plain``,
 ``_emit2_plain``).
 
@@ -54,6 +55,7 @@ import torch
 
 from lbzip2_tpu_torch import _build
 from lbzip2_tpu_torch.device import record_event, resolve, to_host, upload
+from lbzip2_tpu_torch.ops import lookback
 
 _INF = 2 ** 31 - 1
 _BIG = 1 << 30
@@ -67,7 +69,7 @@ SEG_BLOCKS = (256, 1024, 4096)
 launches = 0       # seeds and passes that launched the CUDA kernels
 pass_launches = 0  # of those, the passes (_pass8, and the loop's on the card)
 emit_launches = 0   # emit_bytes' launch pairs (_emit_bytes, _emit2)
-token_launches = 0  # launches of emit_tokens (_emit2)
+token_launches = 0  # emit_tokens calls (_emit2): a scan and its tail each
 _held = threading.local()  # a thread's kernel scratch, per device
 
 
@@ -418,10 +420,12 @@ def _emit_lib():
         lib.lbz2t_emit_buckets.restype = ctypes.c_int
         lib.lbz2t_emit_bytes.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.lbz2t_emit_tokens_scratch_ints.argtypes = [ctypes.c_int] * 2
-        lib.lbz2t_emit_tokens_scratch_ints.restype = ctypes.c_longlong
-        lib.lbz2t_emit_tokens.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lbz2t_emit_tokens_desc_ints.argtypes = [ctypes.c_int] * 2
+        lib.lbz2t_emit_tokens_desc_ints.restype = ctypes.c_longlong
+        lib.lbz2t_emit_tokens_state_ints.argtypes = []
+        lib.lbz2t_emit_tokens_state_ints.restype = ctypes.c_longlong
+        lib.lbz2t_emit_tokens.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.lbz2t_emit_bytes.restype = lib.lbz2t_emit_tokens.restype = \
             ctypes.c_int
     return lib
@@ -534,10 +538,11 @@ def _tokens_plain(sbwt: torch.Tensor, ns: torch.Tensor):
 
 
 def _tokens_cuda(lib, sbwt: torch.Tensor, ns: torch.Tensor):
-    """Launch ``emit_tokens`` on the current stream (nothing read on the
-    host): (tokens (B, N//8) int32, run_counts (B,) int32) of the rows
-    ``sbwt`` (B, N) uint8, N a multiple of 8; tokens past the count are
-    0."""
+    """Launch ``emit_tokens`` on the current stream, the scan and its
+    write-only tail (nothing read on the host): (tokens (B, N//8) int32,
+    run_counts (B,) int32) of the rows ``sbwt`` (B, N) uint8, N a
+    multiple of 8; tokens past the count are 0.  The tile descriptors and
+    the ticket are the calling thread's (``ops/lookback.py``)."""
     global token_launches
     B, N = sbwt.shape
     if N % 8:
@@ -546,15 +551,16 @@ def _tokens_cuda(lib, sbwt: torch.Tensor, ns: torch.Tensor):
     dev = sbwt.device
     with torch.cuda.device(dev):  # the C side launches on it
         tokens = torch.empty((B, N // 8), dtype=torch.int32, device=dev)
-        counts = torch.zeros(B, dtype=torch.int32, device=dev)
         if B == 0 or N == 0:
-            return tokens, counts
-        scratch = torch.empty(lib.lbz2t_emit_tokens_scratch_ints(B, N),
-                              dtype=torch.int32, device=dev)
+            return tokens, torch.zeros(B, dtype=torch.int32, device=dev)
+        counts = torch.empty(B, dtype=torch.int32, device=dev)
+        desc, state, epoch = lookback.scratch(
+            "emit_tokens", dev, lib.lbz2t_emit_tokens_desc_ints(B, N),
+            lib.lbz2t_emit_tokens_state_ints())
         err = lib.lbz2t_emit_tokens(
             sbwt.data_ptr(), ns.data_ptr(), tokens.data_ptr(),
-            counts.data_ptr(), scratch.data_ptr(), B, N, N // 4,
-            torch.cuda.current_stream(dev).cuda_stream)
+            counts.data_ptr(), desc.data_ptr(), state.data_ptr(), B, N,
+            N // 4, epoch, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"bwt2 emit_tokens launch failed: "
                                f"cudaError {err}")

@@ -181,7 +181,8 @@ def _pack_groups_plain(mtfv: torch.Tensor, nm: torch.Tensor,
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int(), total
 
 
-pack_launches = 0  # CUDA kernel launches made by _pack_groups
+pack_launches = 0  # launches of pack_chunks: _pack_groups and _pack_flat
+flat_launches = 0  # of those, the flat mode's (_pack_flat)
 
 
 def _pack_lib():
@@ -191,11 +192,41 @@ def _pack_lib():
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.lbz2t_pack_flat.argtypes = [ctypes.c_void_p] * 12 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lbz2t_pack_flat.restype = ctypes.c_int
         lib.lbz2t_pack_desc_words.argtypes = [ctypes.c_int] * 2
         lib.lbz2t_pack_desc_words.restype = ctypes.c_longlong
         lib.lbz2t_pack_state_ints.argtypes = [ctypes.c_int]
         lib.lbz2t_pack_state_ints.restype = ctypes.c_longlong
     return lib
+
+
+def _pack_checked(mtfv, nm, ninuse, ngroups, selectors, codes, lens,
+                  start_bit, *more):
+    """Raise unless the packing kernel takes these tensors (``more``: the
+    flat mode's row ends, int32 (B,)); then the built library (it raises
+    without nvcc, before anything is queued)."""
+    dev = mtfv.device
+    rows = (nm, ninuse, ngroups, start_bit) + more
+    ints = rows + (mtfv, selectors, lens)
+    if dev.type != "cuda" or any(a.device != dev for a in ints + (codes,)):
+        raise ValueError("the packing kernel needs every input on one CUDA "
+                         "device")
+    if any(a.dtype != torch.int32 for a in ints) or \
+            codes.dtype != torch.int64:
+        raise TypeError("the packing kernel takes int32 inputs and int64 "
+                        "codes")
+    if mtfv.dim() != 2:
+        raise ValueError(f"bad mtfv shape {tuple(mtfv.shape)}")
+    B, NP = mtfv.shape
+    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
+    if any(a.shape != (B,) for a in rows) or selectors.shape != (B, G) or \
+            codes.shape != (B, MAX_TREES, WIDTH) or lens.shape != codes.shape:
+        raise ValueError("bad _pack_groups shapes")
+    if not all(a.is_contiguous() for a in ints + (codes,)):
+        raise ValueError("the packing kernel's inputs must be contiguous")
+    return _pack_lib()
 
 
 def _pack_groups_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
@@ -207,26 +238,10 @@ def _pack_groups_cuda(mtfv: torch.Tensor, nm: torch.Tensor,
     host); its chunk descriptors and ticket are the calling thread's
     (``ops/lookback.py``)."""
     global pack_launches
+    lib = _pack_checked(mtfv, nm, ninuse, ngroups, selectors, codes, lens,
+                        start_bit)
     dev = mtfv.device
-    rows = (nm, ninuse, ngroups, start_bit)
-    ints = rows + (mtfv, selectors, lens)
-    if dev.type != "cuda" or any(a.device != dev for a in ints + (codes,)):
-        raise ValueError("_pack_groups_cuda needs every input on one CUDA "
-                         "device")
-    if any(a.dtype != torch.int32 for a in ints) or \
-            codes.dtype != torch.int64:
-        raise TypeError("_pack_groups_cuda takes int32 inputs and int64 "
-                        "codes")
-    if mtfv.dim() != 2:
-        raise ValueError(f"bad mtfv shape {tuple(mtfv.shape)}")
     B, NP = mtfv.shape
-    G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
-    if any(a.shape != (B,) for a in rows) or selectors.shape != (B, G) or \
-            codes.shape != (B, MAX_TREES, WIDTH) or lens.shape != codes.shape:
-        raise ValueError("bad _pack_groups shapes")
-    if not all(a.is_contiguous() for a in ints + (codes,)):
-        raise ValueError("_pack_groups_cuda inputs must be contiguous")
-    lib = _pack_lib()
     with torch.cuda.device(dev):  # the C side launches on it
         words = torch.zeros((B, W), dtype=torch.int32, device=dev)
         if B == 0 or NP == 0:
@@ -269,6 +284,65 @@ def _pack_groups(mtfv: torch.Tensor, nm: torch.Tensor,
     if mtfv.device.type == "cpu":
         return _pack_groups_plain(mtfv, nm, ninuse, ngroups, selectors,
                                   codes, lens, start_bit, W)
+    raise ValueError(f"unsupported device {mtfv.device}")
+
+
+def _pack_flat_cuda(mtfv, nm, ninuse, ngroups, selectors, codes, lens,
+                    start_bit, W: int, ends: torch.Tensor, F: int):
+    """Launch the flat mode of ``csrc/pack_groups.cu`` on the current
+    stream after the (F,) output's zero fill (no synchronize, nothing read
+    on the host); the descriptors are ``_pack_groups``'."""
+    global pack_launches, flat_launches
+    lib = _pack_checked(mtfv, nm, ninuse, ngroups, selectors, codes, lens,
+                        start_bit, ends)
+    if F < 0 or F >= 2 ** 31 or W < 0:
+        raise ValueError(f"bad flat slots F = {F}, W = {W}")
+    dev = mtfv.device
+    B, NP = mtfv.shape
+    with torch.cuda.device(dev):  # the C side launches on it
+        flat = torch.zeros(F, dtype=torch.int32, device=dev)
+        if B == 0 or NP == 0 or F == 0:
+            return flat
+        desc, state, epoch = lookback.scratch(
+            "pack_groups", dev, lib.lbz2t_pack_desc_words(B, NP),
+            lib.lbz2t_pack_state_ints(B), torch.int64)
+        err = lib.lbz2t_pack_flat(
+            mtfv.data_ptr(), nm.data_ptr(), ninuse.data_ptr(),
+            ngroups.data_ptr(), selectors.data_ptr(), codes.data_ptr(),
+            lens.data_ptr(), start_bit.data_ptr(), ends.data_ptr(),
+            flat.data_ptr(), desc.data_ptr(), state.data_ptr(), B, NP, W, F,
+            epoch, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"pack_groups (flat) kernel launch failed: "
+                               f"cudaError {err}")
+    pack_launches += 1
+    flat_launches += 1
+    return flat
+
+
+def _pack_flat(mtfv: torch.Tensor, nm: torch.Tensor, ninuse: torch.Tensor,
+               ngroups: torch.Tensor, selectors: torch.Tensor,
+               codes: torch.Tensor, lens: torch.Tensor,
+               start_bit: torch.Tensor, W: int, ends: torch.Tensor,
+               F: int) -> torch.Tensor:
+    """The payload words packed and compacted in one step:
+    ``_flatten_words(_pack_groups(...)[0], ends, F)``, as
+    lbzip2_tpu/ops/chain.py::_flatten_download (:380) composes them.
+
+    The arguments of ``_pack_groups``, then ends (B,) int32, the rows'
+    inclusive word ends (non-decreasing; each row's word count ends[r] -
+    ends[r - 1] at most W, 0 for a row left out), and F flat slots.
+    Returns (F,) int32 (u32 bit patterns): row r's words at [ends[r - 1],
+    ends[r]), 0 elsewhere.  For CUDA tensors the flat mode of
+    ``csrc/pack_groups.cu``, one launch after the zero fill, with no (B,
+    W) words array; for CPU tensors the plain composition."""
+    if mtfv.device.type == "cuda":
+        return _pack_flat_cuda(mtfv, nm, ninuse, ngroups, selectors, codes,
+                               lens, start_bit, W, ends, F)
+    if mtfv.device.type == "cpu":
+        words, _ = _pack_groups_plain(mtfv, nm, ninuse, ngroups, selectors,
+                                      codes, lens, start_bit, W)
+        return _flatten_words_plain(words, ends, F)
     raise ValueError(f"unsupported device {mtfv.device}")
 
 
@@ -340,15 +414,6 @@ def _flatten_words(words: torch.Tensor, ends: torch.Tensor, F: int,
     if words.device.type == "cpu":
         return _flatten_words_plain(words, ends, F, base)
     raise ValueError(f"unsupported device {words.device}")
-
-
-def _flatten_download(words: torch.Tensor, ends_dev: torch.Tensor,
-                      needed: int) -> np.ndarray:
-    """Compact on the device and download whole FLAT_CHUNK chunks
-    covering ``needed`` words; returns a host uint32 array."""
-    nch = (needed + FLAT_CHUNK - 1) // FLAT_CHUNK
-    flat = _flatten_words(words, ends_dev, nch * FLAT_CHUNK)
-    return flat.cpu().numpy().view(np.uint32)  # the int32 bit patterns
 
 
 def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
@@ -440,19 +505,22 @@ def chain_payloads(bwt_dev: torch.Tensor, ns, cmaps, idxs, crcs,
                           pack_w == PACK_W and
                           not _force_full_pack) else pack_w
     fits = (payload_bits + start_bit) <= 32 * pw
-    words, _ = _pack_groups(
-        mtfv, nm, ninuse_dev, _put(ngroups.astype(np.int32)), sel,
-        _put(codes.astype(np.int64)), _put(lengths.astype(np.int32)),
-        _put(start_bit), pw)
-    t0 = _mark("dispatch_pack", t0)
-
     wcnt = np.where(fits, (payload_bits + start_bit + 31) // 32,
                     0).astype(np.int32)
     ends = np.cumsum(wcnt).astype(np.int32)
+    args = (mtfv, nm, ninuse_dev, _put(ngroups.astype(np.int32)), sel,
+            _put(codes.astype(np.int64)), _put(lengths.astype(np.int32)),
+            _put(start_bit), pw)
     if B and ends[-1] <= FLAT_W:
-        flat_h = _flatten_download(words, _put(ends), int(ends[-1]))
+        # packed straight into whole FLAT_CHUNK chunks of flat slots
+        F = -(-int(ends[-1]) // FLAT_CHUNK) * FLAT_CHUNK
+        flat = _pack_flat(*args, _put(ends), F)
+        t0 = _mark("dispatch_pack", t0)
+        flat_h = flat.cpu().numpy().view(np.uint32)  # int32 bit patterns
         rows = [flat_h[(ends[b] - wcnt[b]):ends[b]] for b in range(B)]
     else:
+        words, _ = _pack_groups(*args)
+        t0 = _mark("dispatch_pack", t0)
         words_h = words.cpu().numpy().view(np.uint32)
         rows = [words_h[b, :wcnt[b]] for b in range(B)]
     t0 = _mark("wait_pack", t0)

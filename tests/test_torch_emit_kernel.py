@@ -15,18 +15,23 @@ bucket's bytes into an S-byte buffer and stores it whole.  The model
 (the atomics' order is the hardware's) and checks the precondition,
 that every region is filled exactly, that every staging slot, scratch
 entry and destination is written once, and that the output is the same
-whatever the order.  The token kernels run in three launches over tiles of
-threads * per lanes: each tile's last byte change; each tile's count of
-token starts from the run start open at its left (the tiles before it,
-then the threads before in it); then every start's token index (the
-counts of the tiles before, the threads before) and length
-min(next change, p + 255, n) - p (the first change right of a thread from
-the threads after it and a halo of 255 lanes past the tile), stored when
-below the capacity N / 4, the slots from the count to the capacity
-zeroed a share a tile.  The model runs at the kernel's tile (read from
-the source) and at tiny ones, so that runs cross many tile edges, and
-checks that every token slot is written once.  Inputs are made with
-numpy from seeds; every comparison is exact.
+whatever the order.  The tokens are one pass, ``tok_scan``, over tiles of
+threads * per lanes, its CTAs by ticket (tile-major across the rows; in
+ticket order here, ``test_torch_tokens_lookback.py`` interleaves them):
+the tile and a halo past it staged, each thread's lanes summed up as a
+span (first and last change, the starts from the first change on), the
+spans scanned in the kernel's order of combines, the tile's span
+published as its aggregate, the look-back over the row's descriptors to
+the first inclusive one; each thread's starts (its changes and the split
+of the run open at its left in its leading stretch) put at their indices
+in the tile's list of start lanes, then a token a thread, its length to
+the next start (the tile's last from the first change in the halo,
+p + 255 or n), stored below the capacity N / 4, and the count from the
+CTA of lane n - 1; then ``tok_tail`` zeroing the slots from the count to
+the capacity.  The model runs at the kernel's tile (read from the
+source) and at tiny ones, so that runs cross many tile edges, and checks
+that every token slot is written once.  Inputs are made with numpy from
+seeds; every comparison is exact.
 """
 
 import pathlib
@@ -44,6 +49,7 @@ from lbzip2_tpu.ops import bwt2 as jbwt2
 from lbzip2_tpu_torch.interop import to_numpy, to_torch
 from lbzip2_tpu_torch.ops import bwt2
 from test_torch_bwt2 import TOKEN_KINDS, _batch, _token_blocks
+from test_torch_rle2_kernel import in_order, look_back, publish
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SRC = ROOT / "lbzip2_tpu_torch" / "csrc" / "bwt2_emit.cu"
@@ -62,6 +68,7 @@ _j_resolve_loop = jax.jit(jbwt2._resolve_loop)
 
 # (threads, per): the kernel's tile, and tiny ones (16 and 2 lanes)
 CONFIGS = [(_const("kThreads"), _const("kPer")), (4, 4), (2, 1)]
+HALO = _const("kHalo")  # lanes the scan stages past its tile
 # emit_bytes' buckets of destinations and tiles of lanes
 BUCKET = 1 << _const("kBucketLog")
 BIN_TILE = _const("kBinThreads") * _const("kBinPer")
@@ -150,86 +157,187 @@ def emit_bytes_model(blocks, isa, ns, ms, S: int = BUCKET, T: int = BIN_TILE,
     return out.astype(np.uint8), primary
 
 
-def tokens_model(bwt, ns, threads: int, per: int):
-    """The token kernels row by row at tiles of threads * per lanes:
+NONE = 2 ** 31 - 1
+EMPTY = (-1, -1, 0, -1)  # the empty span: (fc, lc, cnt, hi)
+
+
+def splits(r: int, x: int, y: int) -> int:
+    """The lanes p in [x, y) with (p - r) % 255 == 0, r < x."""
+    return (y - 1 - r) // MAXLEN - (x - 1 - r) // MAXLEN if y > x else 0
+
+
+def seg_combine(a, b):
+    """The kernel's combine of two adjacent spans (fc, lc, cnt, hi): fc
+    and lc the first and last change (-1: none), cnt the starts in
+    [fc, hi); hi = -1 the empty span."""
+    if b[3] < 0:
+        return a
+    if a[3] < 0 or a[0] < 0:
+        return b
+    if b[0] < 0:
+        return a[0], a[1], a[2] + splits(a[1], a[3], b[3]), b[3]
+    return a[0], b[1], a[2] + splits(a[1], a[3], b[0]) + b[2], b[3]
+
+
+def seg_tree_scan(xs):
+    """Inclusive scan in the kernel's order of combines (shuffle-up steps
+    of 1, 2, 4, ...)."""
+    xs = list(xs)
+    d = 1
+    while d < len(xs):
+        xs = [seg_combine(xs[i - d], xs[i]) if i >= d else xs[i]
+              for i in range(len(xs))]
+        d *= 2
+    return xs
+
+
+def seg_window_reduce(vals):
+    """Warp 0's combine of a look-back window (lane i holds the tile i
+    before the nearest): the shuffle-down tree, a higher lane on the
+    left."""
+    x = list(vals)
+    d = 1
+    while d < len(x):
+        x = [seg_combine(x[i + d], x[i]) if i + d < len(x) else x[i]
+             for i in range(len(x))]
+        d *= 2
+    return x[0]
+
+
+def cta_scan(segs, warp: int = 32):
+    """The kernel's cta_exclusive: each warp's shuffle-up scan, then the
+    warps' totals scanned; (exclusive Seg a thread, the CTA's Seg)."""
+    incl = []
+    for w0 in range(0, len(segs), warp):
+        incl += seg_tree_scan(segs[w0:w0 + warp])
+    wincl = seg_tree_scan([incl[min(w0 + warp, len(segs)) - 1]
+                           for w0 in range(0, len(segs), warp)])
+    excl = []
+    for j in range(len(segs)):
+        w, lane = divmod(j, warp)
+        before = wincl[w - 1] if w else EMPTY
+        excl.append(seg_combine(before, incl[j - 1]) if lane else before)
+    return excl, wincl[-1]
+
+
+def new_token_state():
+    """The scan's device state between calls: the tile descriptors (any
+    content; epoch-tagged), the ticket (0 between calls), the epoch."""
+    return {"desc": [], "ticket": 0, "epoch": 0}
+
+
+def tokens_model(bwt, ns, threads: int, per: int, schedule=in_order,
+                 window: int = 32, state=None, seen=None):
+    """The token kernels at tiles of threads * per lanes: ``tok_scan``,
+    its CTAs interleaved by ``schedule``, then ``tok_tail``.  Returns
     (tokens (B, N // 8) int32, run_counts (B,) int32)."""
     B, N = bwt.shape
     cap = N // 4
     T = threads * per
-    tiles = -(-N // T)
+    tiles = max(-(-N // T), 1)
+    st = state if state is not None else new_token_state()
+    st["epoch"] += 1
+    epoch = st["epoch"]
+    while len(st["desc"]) < B * tiles:
+        st["desc"].append((0, "X", None, None))
+    seen = [] if seen is None else seen
     tok = np.full((B, cap), UNSET, np.uint16)
-    counts = np.zeros(B, np.int32)
+    counts = np.full(B, -1, np.int64)
+    ns_c = [min(max(int(ns[b]), 0), N) for b in range(B)]
+    rows = [bwt[b].astype(np.int64) for b in range(B)]
+
+    def cta(k):
+        """A CTA draws ticket k when it starts; its steps run later."""
+        assert k == st["ticket"]
+        st["ticket"] = 0 if k == B * tiles - 1 else k + 1
+        return steps(k)
+
+    def steps(k):
+        t, b = divmod(k, B)
+        n, row = ns_c[b], rows[b]
+        tc = (n - 1 if n else 0) // T
+        if t > tc:
+            return  # lanes >= n only
+        lo = t * T
+        # the staging: the tile and HALO lanes past it, lanes < n only
+        live = max(min(n - lo, T + HALO), 0)
+        sb = np.zeros(T + HALO, np.int64)
+        sb[:live] = row[lo:lo + live]
+        pre = int(row[lo - 1]) if lo > 0 else -1
+        # the first change in the halo's first 255 lanes
+        halo = next((lo + T + i for i in range(MAXLEN)
+                     if lo + T + i < n and sb[T + i] != sb[T + i - 1]), NONE)
+        prev = np.concatenate([[pre], sb[:T - 1]])
+        lanes = lo + np.arange(T)
+        chg = (lanes < n) & ((lanes == 0) | (sb[:T] != prev))
+        segs, changes = [], []
+        for j in range(threads):
+            first = lo + j * per
+            hi = min(first + per, n)
+            cs = [int(p) for p in lanes[j * per:(j + 1) * per][
+                chg[j * per:(j + 1) * per]]]
+            changes.append(cs)
+            segs.append((cs[0], cs[-1], len(cs), hi) if cs else
+                        (-1, -1, 0, hi))
+        excl, tile = cta_scan(segs)
+        desc, base = st["desc"], b * tiles
+        if t == 0:
+            publish(desc, base, epoch, "P", tile)
+            before = EMPTY
+        else:
+            publish(desc, base + t, epoch, "A", tile)
+            yield
+            before = yield from look_back(desc, base, t, epoch, window, seen,
+                                          seg_combine, EMPTY,
+                                          seg_window_reduce)
+            publish(desc, base + t, epoch, "P", seg_combine(before, tile))
+        yield
+        whole = seg_combine(before, tile)
+        out0 = before[2]
+        count = whole[2] - out0
+        if t == tc:
+            assert counts[b] == -1, "a row's count written twice"
+            counts[b] = whole[2]
+        # each start's index: the starts before its thread, its rank in it
+        sp = [None] * T
+        for j in range(threads):
+            first = lo + j * per
+            hi = min(first + per, n)
+            starts = list(changes[j])
+            opened = seg_combine(before, excl[j])
+            if opened[3] >= 0 and first < hi:
+                lead = changes[j][0] - first if changes[j] else hi - first
+                d = (first - opened[1]) % MAXLEN
+                q = MAXLEN - d if d else 0
+                if q < lead:
+                    starts.append(first + q)
+            i = opened[2] - out0
+            for p in sorted(starts):
+                assert sp[i] is None, "a start's slot taken twice"
+                sp[i] = p - lo
+                i += 1
+        assert all(v is not None for v in sp[:count]) and \
+            all(v is None for v in sp[count:])
+        yield
+        # a thread a token: the length to the next start's lane
+        for i in range(max(min(count, cap - out0), 0)):
+            p = sp[i]
+            nxt = sp[i + 1] if i + 1 < count else \
+                min(halo, lo + p + MAXLEN, n) - lo
+            ln = nxt - p
+            assert 1 <= ln <= MAXLEN
+            assert tok[b, out0 + i] == UNSET, "slot written twice"
+            tok[b, out0 + i] = sb[p] << 8 | ln
+
+    schedule([lambda k=k: cta(k) for k in range(B * tiles)])
+    assert st["ticket"] == 0
+    # tok_tail: the slots from the row's count up to the capacity
     for b in range(B):
-        row = bwt[b].astype(np.int32)
-        n = max(0, min(int(ns[b]), N))
-        isc = np.zeros(N, bool)  # byte changes, lanes < n only
-        isc[:n] = True
-        isc[1:n] = row[1:n] != row[:max(n - 1, 0)]
-        C = np.flatnonzero(isc)
-
-        def last_in(lo, hi):  # the last change in [lo, hi), or -1
-            i = int(np.searchsorted(C, hi)) - 1
-            return int(C[i]) if i >= 0 and C[i] >= lo else -1
-
-        def first_in(lo, hi, none):  # the first change in [lo, hi)
-            i = int(np.searchsorted(C, lo))
-            return int(C[i]) if i < C.size and C[i] < hi else none
-
-        def lanes(t, j):  # thread j's lanes of tile t below n
-            first = t * T + j * per
-            return range(first, min(first + per, t * T + T, n))
-
-        def starts(t, j, rs):  # rs: the run start open at its left
-            out = []
-            for p in lanes(t, j):
-                if isc[p]:
-                    rs = p
-                    out.append(p)
-                elif (p - rs) % MAXLEN == 0:
-                    out.append(p)
-            return out
-
-        def open_runs(t):  # the tiles before, then the threads before
-            carry, out = max(last[:t], default=-1), []
-            for j in range(threads):
-                out.append(carry)
-                carry = max(carry, last_in(t * T + j * per,
-                                           t * T + (j + 1) * per))
-            return out
-
-        # launch 1: each tile's last change
-        last = [last_in(t * T, t * T + T) for t in range(tiles)]
-        # launch 2: each tile's starts
-        cnt = []
-        for t in range(tiles):
-            rs = open_runs(t)
-            cnt.append(sum(len(starts(t, j, rs[j])) for j in range(threads)))
-        total = sum(cnt)
-        counts[b] = total
-        # launch 3: the tokens, then a share of [total, cap) zeroed a tile
-        share = -(-max(cap - total, 0) // tiles)
-        for t in range(tiles):
-            if t * T < n:
-                rs = open_runs(t)
-                halo = first_in(t * T + T, t * T + T + MAXLEN, n)
-                idx = sum(cnt[:t])
-                for j in range(threads):
-                    end = t * T + (j + 1) * per
-                    right = first_in(end, t * T + T, halo)
-                    for p in starts(t, j, rs[j]):
-                        ln = min(first_in(p + 1, end, right), p + MAXLEN,
-                                 n) - p
-                        assert 1 <= ln <= MAXLEN
-                        if idx < cap:
-                            assert tok[b, idx] == UNSET, "slot written twice"
-                            tok[b, idx] = row[p] << 8 | ln
-                        idx += 1
-            z0 = total + t * share
-            zeroed = tok[b, z0:min(z0 + share, cap)]
-            assert (zeroed == UNSET).all(), "slot written twice"
-            zeroed[:] = 0
-        assert not (tok[b] == UNSET).any(), "a token slot never written"
-    return tok.view(np.int32), counts
+        rest = tok[b, min(int(counts[b]), cap):]
+        assert (rest == UNSET).all(), "slot written twice"
+        rest[:] = 0
+    assert not (tok == UNSET).any(), "a token slot never written"
+    return tok.view(np.int32), counts.astype(np.int32)
 
 
 def _smoke():
@@ -373,15 +481,17 @@ def test_tokens_model_on_designed_rows(config, kind):
 
 
 def test_model_constants_match_the_source():
-    """The kernel's tile and token length as the model takes them, and a
-    halo of kMaxLen lanes needs no more than a CTA's threads; emit_bytes'
+    """The kernel's tile, halo and token length as the model takes them:
+    the halo holds the next start after a tile's last one, and its first
+    kMaxLen lanes are checked a thread a lane; emit_bytes'
     buckets and tiles: a row of MAX_N lanes has at most kMaxBuckets
     buckets, one a thread of bin_scan, a staged ISA << 8 | byte fits 31
     bits, and an entry's offset and byte fill its kEntry bits."""
     src = SRC.read_text()
     assert _const("kMaxLen") == MAXLEN <= CONFIGS[0][0]
     assert "constexpr int kTile = kThreads * kPer;" in src
-    assert "if (tid < kMaxLen && q < n" in src
+    assert "const bool hit = tid < kMaxLen && q < n" in src
+    assert MAXLEN <= HALO and HALO % 16 == 0 and CONFIGS[0][1] < MAXLEN
     assert "constexpr int kBinTile = kBinThreads * kBinPer;" in src
     assert "constexpr int kBucket = 1 << kBucketLog;" in src
     assert "constexpr unsigned kEntry = (1u << (kBucketLog + 8)) - 1u;" in src

@@ -60,12 +60,14 @@ def new_state():
 
 def model(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W,
           chunk: int, schedule=in_order, window: int = 32, state=None,
-          seen=None):
+          seen=None, ends=None, F: int = 0):
     """The kernel's launch after the output's zero fill, its CTAs
-    interleaved by ``schedule``: (words (B, W) uint32, total (B,)).
-    ``seen`` collects the kinds the look-backs read, and the count of
-    entries read from device memory (symbols outside 0 .. ninuse + 2)
-    under "global"."""
+    interleaved by ``schedule``: (words (B, W) uint32, total (B,)); in
+    the flat mode (``ends`` given, the rows' inclusive word ends) row r's
+    words go to flat slots [ends[r - 1], ends[r]) below F instead:
+    (flat (F,) uint32, None).  ``seen`` collects the kinds the look-backs
+    read, and the count of entries read from device memory (symbols
+    outside 0 .. ninuse + 2) under "global"."""
     B, NP = mtfv.shape
     G = -(-NP // 50)
     chunks = -(-G // chunk)
@@ -75,9 +77,10 @@ def model(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W,
     while len(st["desc"]) < B * chunks:
         st["desc"].append((0, "X", None, None))
     seen = [] if seen is None else seen
-    words = np.zeros((B, W), np.uint64)
-    owned = np.full((B, W), -1, np.int64)
-    edged = np.zeros((B, W), bool)
+    size = F if ends is not None else B * W
+    words = np.zeros(size, np.uint64)  # (B, W) row-major, or the flat slots
+    owned = np.full(size, -1, np.int64)
+    edged = np.zeros(size, bool)
     total = np.full(B, -1, np.int64)
     read = np.zeros((B, max(NP, 1)), np.int64)  # symbol loads a lane
 
@@ -89,6 +92,13 @@ def model(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W,
 
     def steps(k):
         c, b = divmod(k, B)
+        # the row's words: words[b, :W], or flat[start, min(end, F))
+        base_slot, row_lim = b * W, W
+        if ends is not None:
+            base_slot = int(ends[b - 1]) if b else 0
+            row_lim = min(int(ends[b]), F) - base_slot
+            if row_lim <= 0:
+                return  # the row does not fit: nothing to write
         ng = min(max(int(ngroups[b]), 0), G)
         cc = (ng - 1) // chunk if ng else 0
         if c > cc:
@@ -129,20 +139,21 @@ def model(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W,
             publish(desc, base + c, epoch, "P", before + mine)
         yield
         start0 = int(start_bit[b]) + before
-        if c == cc:
+        if c == cc and ends is None:
             total[b] = start0 + mine
 
         def put(w, v, whole, g):
-            if w >= W:
+            if w >= row_lim:
                 return
-            assert owned[b, w] == -1, "a word stored twice"
+            i = base_slot + w
+            assert owned[i] == -1, "a word stored twice"
             if whole:
-                assert not edged[b, w] and not words[b, w]
-                owned[b, w] = g
-                words[b, w] = v
+                assert not edged[i] and not words[i]
+                owned[i] = g
+                words[i] = v
             elif v:
-                edged[b, w] = True
-                words[b, w] |= v
+                edged[i] = True
+                words[i] |= v
 
         start = start0
         for g in groups:  # a thread a group
@@ -168,7 +179,9 @@ def model(mtfv, nm, ninuse, ngroups, sel, codes, lens, start_bit, W,
     schedule([lambda k=k: cta(k) for k in range(B * chunks)])
     assert st["ticket"] == 0
     assert read.max(initial=0) <= 1, "a symbol read twice"
-    return words.astype(np.uint32), total
+    if ends is not None:
+        return words.astype(np.uint32), None
+    return words.astype(np.uint32).reshape(B, W), total
 
 
 def _inputs(rng, B, NP, nm, ninuse, max_len=20, W=None):
@@ -276,25 +289,25 @@ def test_model_against_plain_and_jax(name):
 
 
 def test_text_batch_through_chain_payloads():
-    """The arguments chain_payloads gives _pack_groups on a CPU text
-    batch (the real tables, selectors and start bits), through the model,
-    the plain version and JAX."""
+    """The packing arguments chain_payloads gives its flat pack on a CPU
+    text batch (the real tables, selectors and start bits), through the
+    model, the plain version and JAX."""
     from test_torch_chain import MIXED, _mk_blocks
 
     bwts, ns, cmaps, idxs, crcs = _mk_blocks(MIXED)
     got = {}
-    real = chain._pack_groups
+    real = chain._pack_flat
 
     def spy(*a):
         got["args"] = a
         return real(*a)
 
-    chain._pack_groups = spy
+    chain._pack_flat = spy
     try:
         chain.chain_payloads(to_torch(bwts), ns, cmaps, idxs, crcs)
     finally:
-        chain._pack_groups = real
-    *tensors, W = got["args"]
+        chain._pack_flat = real
+    *tensors, W = got["args"][:9]
     args = {k: to_numpy(t) for k, t in zip(ORDER, tensors)}
     args["codes"] = args["codes"].astype(np.uint32)
     args["W"] = W

@@ -13,8 +13,10 @@ inclusive sum published (A -> P), its placement.  It runs at the
 kernel's chunk (read from the source) and at tiny chunks, so that groups
 straddle chunk edges in bits, with the kernel's look-back window of 32
 lanes and a window of 3; on rows with ngroups 0, rows past W, symbols
-outside the row's alphabet (their entries read from device memory); and
-on one device state over several calls.
+outside the row's alphabet (their entries read from device memory); in
+the flat mode, each row's words stored at its flat slots (rows that do
+not fit left out, the first and the last among them); and on one device
+state over several calls.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ import pytest
 
 from test_torch_pack_kernel import (CONFIGS, ORDER, _case, _inputs, _jax,
                                     _plain, model, new_state)
+from test_torch_pack_flat import CHUNK, _want as _want_flat, word_ends
 from test_torch_rle2_lookback import random_order
 
 
@@ -113,3 +116,26 @@ def test_stale_descriptors_of_an_earlier_call():
         np.testing.assert_array_equal(words, want[0])
         np.testing.assert_array_equal(total, want[1])
     assert st["epoch"] == 4 and st["ticket"] == 0
+
+
+@pytest.mark.parametrize("name", ["rows_overflow_W", "start_bit_31",
+                                  "ngroups_0_and_below_G"])
+def test_interleaved_flat_stores(name):
+    """The flat mode interleaved: every row's words at [ends[r - 1],
+    ends[r]) of the flat slots, exactly JAX's compaction of its words;
+    the first and the last row left out of start_bit_31."""
+    args = _case(name)
+    keep = np.ones(len(args["nm"]), bool)
+    if name == "start_bit_31":
+        keep[[0, -1]] = False
+    ends = word_ends(args, keep)
+    want = _want_flat(args, ends, CHUNK)
+    for c, chunk in enumerate(CONFIGS):
+        for resident, window in ((2, 32), (9, 3)):
+            rng = np.random.default_rng([sum(map(ord, name)), c, resident])
+            seen: list = []
+            flat, _ = model(*(args[k] for k in ORDER), args["W"], chunk,
+                            random_order(rng, resident), window, seen=seen,
+                            ends=ends, F=CHUNK)
+            np.testing.assert_array_equal(flat, want,
+                                          err_msg=f"{chunk} {resident}")
