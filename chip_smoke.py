@@ -8,10 +8,11 @@ The second form runs no phase: it builds the kernels of this checkout
 (or of the checkout at DIR, whose wrappers have the same signatures:
 run both in turns inside one call to compare two trees), holds them
 against their plain versions on the timed inputs of phases 3, 4, 8, 9,
-12, 13, 14, 15, 19, 20 and 21 (a checkout without the CRC and the bit
+12, 13, 14, 15, 19, 20, 21 and 22 (a checkout without the CRC and the bit
 packer times the six it has; one without the BWT's suffix-sort kernels
 times the plain suffix sorts its main path ran; one without the emits,
-the MTF byte entry or the flat compaction skips them), and prints their
+the MTF byte entry or the flat compaction skips them, one without the
+v1 rotation sort its cyclic modes and pass4), and prints their
 CUDA-event times, with
 --profile each CUDA kernel's device time too, the sweep loop's SASS,
 and the peak of device memory over one text batch through
@@ -167,7 +168,10 @@ Phases (any failure exits non-zero before the last line is printed):
  16. sharded: entry.dryrun_multichip over every visible card at 901120
              (sharded bwt2, token emit, entropy chain, IBWT decode; every
              payload against native.encode_payload, the stream through
-             bz2), with the launches of its kernels; then the same four
+             bz2; then the sharded per-block stage, _block_stage, on the
+             v1 rotation sort's kernels, its rows and primaries bwt2's),
+             with the launches of its kernels, the v1 ones among them;
+             then the same four
              steps over [cuda:0, cuda:0] (two shards, a stream each, on
              one card) against the unsharded port and
              native.encode_payload, sharded and unsharded walls in turns.
@@ -278,6 +282,29 @@ Phases (any failure exits non-zero before the last line is printed):
              the tokens, and that none ran a plain twin; phase 6 that
              the main path ran the flat pack and not the standalone
              compaction.
+ 22. bwt v1: the v1 rotation sort (ops/bwt.py) on the cyclic and 4-key
+             modes of csrc/bwt2_sort.cu and the emit of csrc/bwt2_emit.cu
+             (ms = 0) against its plain twins on the card, tolerance 0:
+             the first 32 text blocks as they stand at (32, 901120), the
+             stream's random blocks, periodic stress rows (period 1 at
+             n = 900,000, one class of every lane; period 3; period
+             65,537) and an (8, 8192) bucket (n = 1, 2, 3, 15, 17, N, a
+             periodic row, a row with one lane of sixteen FF bytes): the
+             cyclic seed against _seed_sparse's ranks and counts, every
+             pass and the tie-break, the whole loop under
+             torch.cuda.set_sync_debug_mode("error"), bwt_batched against
+             the doubling twin, SparseBwtTask driven by step against
+             JAX's sparse steps, bwt_batched_uniform on the uniform-n
+             cases, every row and primary against bwt2_bytes after
+             native.lyndon_prep (primitive rows) or native.bwt
+             (periodic); then the v1 path (the sharded per-block stage
+             over [cuda:0] on the text rows) with its launches counted
+             and no plain twin; pass4, chain_mtf and em_estep_batch
+             against their plain twins on the text batch; CUDA-event
+             times of each at (32, 901120) against the plain versions
+             and the library call (torch.sort(stable=True) of a
+             (32, 901120) int64 key; scatter_ for the emit), each
+             kernel's device time.  (It runs after phase 21.)
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -1848,12 +1875,30 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
         calls["pack_flat_text_32x901120"] = (
             chain._pack_flat, flat_plain,
             flat_args(bwt, ns, cmaps, primary.cpu().numpy()))
+    try:  # the v1 rotation sort's modes; a checkout from before has none
+        from lbzip2_tpu_torch.ops import bwt as v1
+    except ImportError:
+        v1 = None
+    if v1 is not None:
+        v1_rows, v1_ns = (torch.from_numpy(a).to(dev) for a in
+                          v1_cases(data, text)["text_32x901120"])
+        calls["bwt_cyclic_seed_text_32x901120"] = (
+            v1._seed_cyclic, v1._seed_cyclic_plain, (v1_rows, v1_ns))
+        calls["bwt_cyclic_pass_text_32x901120"] = (
+            lambda i, m: v1._pass_cyclic(i, 16, m),
+            lambda i, m: v1._pass_cyclic_plain(i, 16, m),
+            (v1._seed_cyclic_plain(v1_rows, v1_ns)[0], v1_ns))
+        calls["bwt_v1_batched_text_32x901120"] = (
+            v1.bwt_batched, v1._bwt_rows_plain, (v1_rows, v1_ns))
+        calls["bwt2_pass4_text_32x901120"] = (
+            lambda i, m: bwt2.pass4(i, 16, m),
+            lambda i, m: bwt2._passx_plain(i, 16, m, 4), (seed_isa, ns_d))
     res = {"package": os.path.dirname(mtf_pallas.__file__),
            "card": card_line(), "ms": {}, "max_abs_err": {}}
     for name, (kernel, plain, a) in calls.items():
         got, want = kernel(*a), plain(*a)
         torch.cuda.synchronize()
-        if name.startswith("bwt2"):  # the ISA's lanes < n, and cnt
+        if name.startswith(("bwt2", "bwt_cyclic")):  # ISA's lanes < n, cnt
             got, want = ((valid_lanes(x[0], a[-1]), x[1])
                          for x in (got, want))
         if name in emit_ns:
@@ -2397,7 +2442,7 @@ def bwt2_phase(data: bytes, text: bytes, dev) -> list:
 def reset_counts() -> None:
     """Set the launch counts of the kernels the sharded and engine paths
     run to 0, just before a path runs (read_counts just after)."""
-    from lbzip2_tpu_torch.ops import (bwt2, chain, huffenc, ibwt,
+    from lbzip2_tpu_torch.ops import (bwt, bwt2, chain, huffenc, ibwt,
                                       mtf_pallas, rle2)
 
     mtf_pallas.launches = huffenc.em_launches = huffenc.launches = 0
@@ -2405,10 +2450,12 @@ def reset_counts() -> None:
     rle2.launches = chain.pack_launches = chain.flat_launches = 0
     bwt2.emit_launches = bwt2.token_launches = 0
     mtf_pallas.bytes_launches = chain.flatten_launches = 0
+    bwt.seed_launches = bwt.pass_launches = bwt.tie_launches = 0
+    bwt.emit_launches = 0
 
 
 def read_counts() -> dict:
-    from lbzip2_tpu_torch.ops import (bwt2, chain, huffenc, ibwt,
+    from lbzip2_tpu_torch.ops import (bwt, bwt2, chain, huffenc, ibwt,
                                       mtf_pallas, rle2)
 
     return {"mtf_ranks": mtf_pallas.launches, "em_chain":
@@ -2420,7 +2467,11 @@ def read_counts() -> dict:
             "emit_bytes": bwt2.emit_launches,
             "emit_tokens": bwt2.token_launches,
             "mtf_ranks_bytes": mtf_pallas.bytes_launches,
-            "pack_flat": chain.flat_launches}
+            "pack_flat": chain.flat_launches,
+            "bwt_cyclic_seed": bwt.seed_launches,
+            "bwt_cyclic_pass": bwt.pass_launches,
+            "bwt_tie_break": bwt.tie_launches,
+            "bwt_emit_v1": bwt.emit_launches}
 
 
 def sharded_phase(dev) -> dict:
@@ -2695,8 +2746,10 @@ def plain_twins_counted(counts: dict):
     while the block runs: the EM loop, its E-step and stand-alone M-step,
     the RLE2, its flat histogram, the group packing, the BWT's emits, the
     compaction of the MTF's byte load and the flat payload compaction.
-    A path on the card makes none."""
-    from lbzip2_tpu_torch.ops import bwt2, chain, huffenc, mtf_pallas, rle2
+    A path on the card makes none; nor does the v1 rotation sort's, of
+    its plain twins."""
+    from lbzip2_tpu_torch.ops import (bwt, bwt2, chain, huffenc, mtf_pallas,
+                                      rle2)
 
     saved = []
     for mod, name in ((huffenc, "_em_chain"), (chain, "_em_estep_hist"),
@@ -2706,7 +2759,10 @@ def plain_twins_counted(counts: dict):
                       (bwt2, "_emit_bytes_plain"), (bwt2, "_emit2_plain"),
                       (bwt2, "_tokens_plain"), (mtf_pallas, "_compact_syms"),
                       (mtf_pallas, "mtf_ranks_bytes_plain"),
-                      (chain, "_flatten_words_plain")):
+                      (chain, "_flatten_words_plain"),
+                      (bwt, "_bwt_rows_plain"), (bwt, "_seed_cyclic_plain"),
+                      (bwt, "_pass_cyclic_plain"),
+                      (bwt, "_emit_sparse_plain")):
         fn = getattr(mod, name)
         counts.setdefault(name, 0)
 
@@ -3451,6 +3507,285 @@ def emits_phase(data: bytes, text: bytes, batch, dev) -> list:
     return records
 
 
+
+# ---- 22. the v1 rotation sort ------------------------------------------------
+
+def v1_cases(data: bytes, text: bytes) -> dict:
+    """Phase 22's inputs, name -> (rows, ns) on the host, rows zero past
+    n: the first 32 text blocks as they stand at (32, 901120), the
+    stream's uniform random, 16-value and random-run blocks, the periodic
+    stress rows (period 1 at n = 900,000: one class of every lane;
+    period 3; period 65,537), and an (8, 8192) bucket with n = 1, 2, 3,
+    15, 17 and N, a fully periodic row and a row with one lane of
+    sixteen FF bytes (n < N: that lane shares the pads' class in the
+    seed and counts as unresolved)."""
+    tb = np.frombuffer(text, np.uint8)
+    tail = np.frombuffer(data[-3 * BLOCK:], np.uint8)
+    rng = np.random.default_rng(22)
+
+    def rows_of(blocks, width):
+        rows = np.zeros((len(blocks), width), np.uint8)
+        for r, b in enumerate(blocks):
+            rows[r, :b.size] = b
+        return rows, np.array([b.size for b in blocks], np.int32)
+
+    ff = rng.integers(0, 0xF0, 6000).astype(np.uint8)
+    ff[2000:2016] = 0xFF
+    return {
+        "text_32x901120": rows_of([tb[(r * BLOCK) % tb.size:][:BLOCK]
+                                   for r in range(ROWS)], WIDTH),
+        "random_uniform_16_runs": rows_of(
+            [tail[i * BLOCK:(i + 1) * BLOCK] for i in range(3)], WIDTH),
+        "periodic_stress": rows_of(
+            [np.full(BLOCK, 0x61, np.uint8),
+             np.tile(np.array([7, 1, 7], np.uint8), BLOCK // 3),
+             np.tile(rng.integers(0, 256, 65537).astype(np.uint8),
+                     BLOCK // 65537 + 1)[:BLOCK]], WIDTH),
+        "bucket_8x8192": rows_of(
+            [rng.integers(0, 256, n).astype(np.uint8)
+             for n in (1, 2, 3, 15, 17, 8192)] +
+            [np.tile(np.array([5, 6], np.uint8), 2000), ff], 8192)}
+
+
+def v1_reference(rows, ns):
+    """The BWT rows and primaries of the host: bwt2_bytes (the kernels'
+    suffix sort) after native.lyndon_prep for a primitive row, the host C
+    BWT (native.bwt) for a periodic one.  (rows list, primaries)."""
+    from lbzip2_tpu_torch import native
+    from lbzip2_tpu_torch.ops import bwt2
+
+    B, N = rows.shape
+    rot = np.zeros_like(rows)
+    ms = np.zeros(B, np.int32)
+    for r in range(B):
+        ms[r] = native.lyndon_prep(rows[r, :ns[r]], out=rot[r, :ns[r]])[1]
+    dev = torch.device("cuda", 0)
+    prim = bwt2.bwt2_bytes(*(torch.from_numpy(a).to(dev) for a in
+                             (rot, ns, np.maximum(ms, 0))))
+    out, primary = (t.cpu().numpy() for t in prim)
+    want = [out[r, :ns[r]] for r in range(B)]
+    primary = primary.copy()
+    for r in np.flatnonzero(ms < 0):
+        want[r], primary[r] = native.bwt(rows[r, :ns[r]])
+    return want, primary, int((ms < 0).sum())
+
+
+def bwt_v1_phase(data: bytes, text: bytes, dev) -> list:
+    """22. The v1 rotation sort (ops/bwt.py) on the cyclic and 4-key
+    modes of csrc/bwt2_sort.cu and the emit of csrc/bwt2_emit.cu, against
+    the plain twins on the card, tolerance 0, on every case of v1_cases:
+    the cyclic seed (ISA's lanes < n and counts against _seed_sparse's),
+    every pass of the loop and the tie-break, the whole loop under
+    torch.cuda.set_sync_debug_mode("error") (no host read); bwt_batched
+    against the doubling twin, SparseBwtTask driven by step against
+    JAX's sparse steps, bwt_batched_uniform (uniform-n cases) against
+    its shift twin; every row and primary against the host
+    (v1_reference).  Then the v1 path, the sharded per-block stage over
+    [cuda:0] on the text rows, with its launches counted; pass4, chain_mtf
+    and em_estep_batch against their plain twins on the text batch; the
+    CUDA-event times of each at (32, 901120) against the plain versions
+    and, for the sorts, one torch.sort(stable=True) of a (32, 901120)
+    int64 key; each kernel's device time.  Returns the records."""
+    from lbzip2_tpu_torch.ops import bwt, bwt2, chain
+    from lbzip2_tpu_torch.parallel import sharding
+
+    errs = dict.fromkeys(("seed", "pass", "tie", "loop", "emit", "uniform",
+                          "sparse", "pass4", "chain_mtf", "estep"), 0)
+
+    def check(which, got, want, ns=None, name=""):
+        if ns is not None:  # an ISA: its lanes < n, and the counts
+            got = (valid_lanes(got[0], ns), got[1])
+            want = (valid_lanes(want[0], ns), want[1])
+        e = max_err_of(got, want)
+        errs[which] = max(errs[which], e)
+        assert e == 0, f"v1 {which} kernel disagrees with its twin on {name}"
+
+    t_all = time.time()
+    for name, (rows_h, ns_h) in v1_cases(data, text).items():
+        t0 = time.time()
+        rows, ns = (torch.from_numpy(a).to(dev) for a in (rows_h, ns_h))
+        isa, cnt = bwt._seed_cyclic(rows, ns)
+        check("seed", (isa, cnt), bwt._seed_cyclic_plain(rows, ns), ns, name)
+        passes, k = 0, 16
+        for _ in range(bwt2.loop_passes(rows.shape[1])):
+            if int(cnt.max()) == 0:
+                break
+            out = bwt._pass_cyclic(isa, k, ns)
+            check("pass", out, bwt._pass_cyclic_plain(isa, k, ns), ns, name)
+            isa, cnt = out
+            passes, k = passes + 1, k * 8
+        out = bwt._tie_break(isa, ns)
+        check("tie", out, bwt._pass_cyclic_plain(isa, 1, ns, tie=True), ns,
+              name)
+        ties = int(cnt.max())
+        final = out[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop_isa = bwt._cyclic_loop(rows, ns)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check("loop", valid_lanes(loop_isa, ns), valid_lanes(final, ns),
+              name=name)
+        got = bwt.bwt_batched(rows, ns)
+        check("loop", got, bwt._bwt_rows_plain(rows, ns), name=name)
+        check("emit", bwt._emit_sparse(rows, final, ns),
+              bwt._emit_sparse_plain(rows, final, ns), name=name)
+        task = bwt.SparseBwtTask(rows_h, ns_h)
+        steps = 0
+        while not task.step():
+            steps += 1
+        packed, prim = task.result()
+        check("sparse", (torch.from_numpy(packed), torch.from_numpy(prim)),
+              tuple(t.cpu() for t in bwt.bwt_sparse_plain(rows, ns)),
+              name=name)
+        if (ns_h == ns_h[0]).all():
+            check("uniform", bwt.bwt_batched_uniform(rows, int(ns_h[0])),
+                  bwt._bwt_uniform_plain(rows, int(ns_h[0])), name=name)
+        want, want_prim, periodic = v1_reference(rows_h, ns_h)
+        out_h, prim_h = (t.cpu().numpy() for t in got)
+        for r in range(len(ns_h)):
+            assert np.array_equal(out_h[r, :ns_h[r]], want[r]) and \
+                int(prim_h[r]) == int(want_prim[r]), \
+                f"v1 BWT of {name} row {r} differs from the host"
+        log(f"bwt v1 kernels vs plain [{name}, {tuple(rows.shape)}]: equal "
+            f"on the seed, {passes} passes, the tie-break ({ties} tied "
+            f"lanes left before it), the loop under sync debug mode, "
+            f"bwt_batched, the emit, SparseBwtTask ({steps} steps) and "
+            f"bwt_batched_uniform where n is uniform; rows and primaries "
+            f"equal to the host's ({periodic} periodic rows); "
+            f"{time.time() - t0:.1f} s")
+
+    # the v1 path: the sharded per-block stage on the text rows
+    rows_h, ns_h = v1_cases(data, text)["text_32x901120"]
+    torch.cuda.synchronize()
+    reset_counts()
+    plain: dict = {}
+    with plain_twins_counted(plain):
+        stage = sharding.encode_batch_sharded(rows_h, ns_h, [dev])
+    counts = read_counts()
+    log(f"bwt v1 path (encode_batch_sharded over [cuda:0], "
+        f"{rows_h.shape}): launches {json.dumps(counts)}; plain versions "
+        f"{json.dumps(plain)}")
+    assert all(counts[k] for k in ("bwt_cyclic_seed", "bwt_cyclic_pass",
+                                   "bwt_tie_break", "bwt_emit_v1",
+                                   "mtf_ranks")) and \
+        not any(plain.values()), "the v1 path missed a kernel"
+
+    # timed at (32, 901120) on the text rows, and the other functions on
+    # the text batch
+    rows, ns = (torch.from_numpy(a).to(dev) for a in (rows_h, ns_h))
+    seed_isa = bwt._seed_cyclic(rows, ns)[0]
+    final = bwt._cyclic_loop(rows, ns)
+    pre_tie = seed_isa
+    k = 16
+    for _ in range(bwt2.loop_passes(WIDTH)):
+        pre_tie = bwt._pass_cyclic(pre_tie, k, ns)[0]
+        k *= 8
+    bwt_rows = torch.from_numpy(stage[0]).to(dev)
+    assert np.array_equal(stage[1], bwt.bwt_batched(rows, ns)[1].cpu()
+                          .numpy()), "the stage's primaries differ"
+    cm = np.zeros((ROWS, 256), np.uint8)
+    for r in range(ROWS):
+        cm[r, np.unique(rows_h[r, :ns_h[r]])] = 1
+    cmaps = torch.from_numpy(cm).to(dev)
+    check("chain_mtf", chain.chain_mtf(bwt_rows, ns, cmaps),
+          chain._chain_mtf_plain(bwt_rows, ns, cmaps), name="text")
+    mtfv, nm, _ = chain.chain_mtf(bwt_rows, ns, cmaps)
+    ninuse = cmaps.int().sum(1, dtype=torch.int32)
+    g = torch.Generator(device=dev).manual_seed(22)
+    lengths = torch.randint(1, 21, (ROWS, 6, 259), generator=g, device=dev,
+                            dtype=torch.int32)
+    nts = (torch.arange(ROWS, device=dev, dtype=torch.int32) % 6) + 1
+    est_args = (mtfv, nm, ninuse, nts, lengths)
+    check("estep", chain.em_estep_batch(*est_args),
+          chain._em_estep_batch_plain(*est_args), name="text")
+    lyn, lns, _ = text_rows(text)
+    lyn, lns = (torch.from_numpy(a).to(dev) for a in (lyn, lns))
+    s16 = bwt2._seed16(lyn, lns)[0]
+    check("pass4", bwt2.pass4(s16, 16, lns), bwt2._passx_plain(s16, 16, lns, 4),
+          lns, "text")
+    lib_ms = sort_library_ms(dev)
+    prev = torch.cat([rows[:, -1:], rows[:, :-1]], 1)
+    fns = {
+        "seed": (lambda: bwt._seed_cyclic(rows, ns),
+                 lambda: bwt._seed_cyclic_plain(rows, ns)),
+        "pass": (lambda: bwt._pass_cyclic(seed_isa, 16, ns),
+                 lambda: bwt._pass_cyclic_plain(seed_isa, 16, ns)),
+        "tie": (lambda: bwt._tie_break(pre_tie, ns),
+                lambda: bwt._pass_cyclic_plain(pre_tie, 1, ns, tie=True)),
+        "loop": (lambda: bwt.bwt_batched(rows, ns),
+                 lambda: bwt._bwt_rows_plain(rows, ns)),
+        "emit": (lambda: bwt._emit_sparse(rows, final, ns),
+                 lambda: bwt._emit_sparse_plain(rows, final, ns)),
+        "uniform": (lambda: bwt.bwt_batched_uniform(rows, BLOCK),
+                    lambda: bwt._bwt_uniform_plain(rows, BLOCK)),
+        "pass4": (lambda: bwt2.pass4(s16, 16, lns),
+                  lambda: bwt2._passx_plain(s16, 16, lns, 4)),
+        "chain_mtf": (lambda: chain.chain_mtf(bwt_rows, ns, cmaps),
+                      lambda: chain._chain_mtf_plain(bwt_rows, ns, cmaps)),
+        "estep": (lambda: chain.em_estep_batch(*est_args),
+                  lambda: chain._em_estep_batch_plain(*est_args))}
+    ms, plain_ms, us = {}, {}, {}
+    for which, (kernel, twin) in fns.items():
+        ms[which] = cuda_ms(kernel, 5)
+        plain_ms[which] = cuda_ms(twin, 1 if which in ("loop", "uniform")
+                                  else 2)
+        us[which] = device_us(kernel, 2)
+    scatter_ms = cuda_ms(lambda: torch.empty_like(rows).scatter_(
+        1, final.long(), prev), 10)
+    log(f"bwt v1 times at (32, {WIDTH}), ms: kernels {json.dumps(ms)}, "
+        f"plain {json.dumps(plain_ms)}; torch.sort(stable=True) {lib_ms:.3f}"
+        f", scatter_ {scatter_ms:.3f}; device us {json.dumps(us)}; phase "
+        f"{time.time() - t_all:.1f} s")
+
+    lanes = ROWS * WIDTH
+    live = int(ns_h.sum())
+    syms = int(nm.sum())
+    rec = {
+        "seed": ("bwt_cyclic_seed", "lbzip2_tpu/ops/bwt.py:157",
+                 "bwt2_sort.cu", "bwt_cyclic_seed",
+                 bound(lanes + 4 * lanes + 8 * ROWS, live), lib_ms),
+        "pass": ("bwt_cyclic_pass", "lbzip2_tpu/ops/bwt.py:218, :26",
+                 "bwt2_sort.cu", "bwt_cyclic_pass",
+                 bound(8 * lanes + 8 * ROWS, live), lib_ms),
+        "tie": ("bwt_tie_break", "lbzip2_tpu/ops/bwt.py:90, :235",
+                "bwt2_sort.cu", "bwt_tie_break",
+                bound(8 * lanes + 8 * ROWS, live), lib_ms),
+        "loop": ("bwt_v1_batched", "lbzip2_tpu/ops/bwt.py:43, :107",
+                 "bwt2_sort.cu", "bwt_cyclic_seed",
+                 bound(2 * lanes + 8 * ROWS, live),
+                 lib_ms),
+        "emit": ("bwt_emit_v1", "lbzip2_tpu/ops/bwt.py:289", "bwt2_emit.cu",
+                 "bwt_emit_v1", bound(6 * lanes + 8 * ROWS, live),
+                 scatter_ms),
+        "uniform": ("bwt_batched_uniform", "lbzip2_tpu/ops/bwt.py:412",
+                    "bwt2_sort.cu", None, bound(2 * lanes + 4 * ROWS, live),
+                    lib_ms),
+        "pass4": ("bwt2_pass4", "lbzip2_tpu/ops/bwt2.py:158",
+                  "bwt2_sort.cu", None, bound(8 * lanes + 8 * ROWS, live),
+                  lib_ms),
+        "chain_mtf": ("chain_mtf_hist", "lbzip2_tpu/ops/chain.py:100, :71",
+                      "rle2.cu", None,
+                      bound(lanes + 256 * ROWS + 4 * (WIDTH + 1) * ROWS +
+                            259 * 4 * ROWS, live), None),
+        "estep": ("em_estep_batch", "lbzip2_tpu/ops/chain.py:200",
+                  "em_chain.cu", None,
+                  bound(4 * syms + 2 * 6 * 259 * 4 * ROWS +
+                        4 * ROWS * (-(-(WIDTH + 1) // 50)), 6 * syms),
+                  None)}
+    out = []
+    for which, (name, replaces, src, path_key, bnd, library) in rec.items():
+        out.append({"name": name, "route": "cuda",
+                    "source": f"lbzip2_tpu_torch/csrc/{src}",
+                    "replaces": replaces,
+                    "launches": counts[path_key] if path_key else 0,
+                    "max_abs_err": errs[which], "ms": ms[which],
+                    "plain_ms": plain_ms[which], "device_us": us[which],
+                    **bnd, "library_ms": library})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3533,6 +3868,13 @@ def main(argv=None) -> int:
         data, text, text_batch, dev)
     emit_record, tokens_record, mtf_bytes_record, flatten_record = \
         emits_phase(data, text, text_batch, dev)
+    v1_records = bwt_v1_phase(data, text, dev)
+    for r in v1_records:  # on no path: their launches are phase 22's
+        if r["name"] in ("bwt2_pass4", "chain_mtf_hist", "em_estep_batch"):
+            r["smoke_launches"] = {
+                "bwt2_pass4": bwt2.pass4_launches,
+                "chain_mtf_hist": chain.chain_mtf_launches,
+                "em_estep_batch": chain.estep_launches}[r["name"]]
     # the standalone compaction is on no path since the flat pack: its
     # launches are phase 21's
     flatten_record["smoke_launches"] = chain.flatten_launches
@@ -3700,7 +4042,8 @@ def main(argv=None) -> int:
                                   crc_record, bitpack_record, seed_record,
                                   pass_record, rle2_record, pack_record,
                                   flat_record, emit_record, tokens_record,
-                                  mtf_bytes_record, flatten_record]}))
+                                  mtf_bytes_record, flatten_record,
+                                  *v1_records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

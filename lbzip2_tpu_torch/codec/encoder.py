@@ -411,19 +411,35 @@ class _TorchPool:
         with self.q_lock:
             self.claimed.discard(i)
 
+    def release_claim(self, i) -> bool:
+        """Hand device-claimed block i to the host's entropy stage: True
+        if the device still held the claim (no steal-back can take the
+        block from now on), False if a steal-back already took it."""
+        with self.q_lock:
+            if i not in self.claimed:
+                return False
+            self.claimed.discard(i)
+            return True
+
     def is_stale(self, i) -> bool:
         """True once some engine already produced block i."""
         with self.res_cv:
             return i < self.next_deliver or i in self.results
 
-    def put_result(self, i, payload_crc):
+    def put_result(self, i, payload_crc) -> bool:
+        """Deliver block i's result; True if it was kept, False if an
+        engine's result for i was there first (first result wins: a
+        slower engine's duplicate is dropped).  Each engine counts the
+        blocks it delivered by this answer, so a block two engines
+        produced is counted once."""
         with self.q_lock:  # claimed is mutated under q_lock only
             self.claimed.discard(i)
         with self.res_cv:
-            # first result wins; a slower engine's duplicate is dropped
-            if i >= self.next_deliver and i not in self.results:
+            kept = i >= self.next_deliver and i not in self.results
+            if kept:
                 self.results[i] = payload_crc
             self.res_cv.notify_all()
+        return kept
 
     def fail(self, exc):
         with self.res_cv:
@@ -597,7 +613,9 @@ class _TorchPool:
         tok = tokens.numpy().view(np.uint16)
         fresh = stale = 0
         for row, (i, span) in enumerate(zip(ids, spans)):
-            if self.is_stale(i):  # host steal-back beat us to it
+            # the host's entropy stage finishes the row; a steal-back
+            # that took the block first has it, and the row is stale
+            if self.is_stale(i) or not self.release_claim(i):
                 stale += 1
                 continue
             if counts[row] <= cap:
@@ -633,11 +651,13 @@ class _TorchPool:
                 stale += 1
                 continue
             if payloads[row] is None:  # pack overflow: host re-encode
-                self.unclaim(i)
-                self.entropy_q.put((i, span, None, -1))
+                kept = self.release_claim(i)
+                if kept:
+                    self.entropy_q.put((i, span, None, -1))
             else:
-                self.put_result(i, (payloads[row], int(crcs[row])))
-            fresh += 1
+                kept = self.put_result(i, (payloads[row], int(crcs[row])))
+            fresh += kept
+            stale += not kept
         tele["ready_s"] = round(time.time() - t0, 3)
         self._batch_done(tele, fresh, stale)
 
@@ -761,9 +781,9 @@ class _TorchPool:
                 if kind == "entropy":
                     self._do_entropy(item)
                 else:  # steal / steal_back: whole-block host encode
-                    self.stats["host_blocks"] += 1
-                    self.put_result(item, _host_block(
-                        self.buf, self.blocks[item], self.cf))
+                    if self.put_result(item, _host_block(
+                            self.buf, self.blocks[item], self.cf)):
+                        self.stats["host_blocks"] += 1
         except BaseException as e:  # noqa: BLE001
             self.fail(e)
 

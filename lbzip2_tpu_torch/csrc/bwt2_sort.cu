@@ -4,10 +4,13 @@
 // as a segmented sort of the lanes that are still tied.
 //
 // Replaces the XLA-compiled lbzip2_tpu/ops/bwt2.py::_seed16 (:81) and
-// _passx as the main path runs it, _pass8 (:125, :162), each with the
-// _invert (:48) that ends it.  Both functions sort the lanes < n of
-// every row by a tuple of keys and give each lane the SA slot of the
-// first lane of its equal-key class, its rank; the new ISA is
+// _passx (:125) as _pass8 (:162) and _pass4 (:158), each with the
+// _invert (:48) that ends it, and in the cyclic mode the v1 rotation
+// sort of lbzip2_tpu/ops/bwt.py: _seed_sparse (:157), the doubling of
+// _sparse_level (:218) and bwt_masked (:26, :43) and their tie-breaks.
+// Each function sorts the lanes < n of every row by a tuple of keys and
+// gives each lane the SA slot of the first lane of its equal-key class,
+// its rank; the new ISA is
 // ISA[SA[t]] = rank[t].
 //
 // The seed's key of position p is its 16-byte prefix as four big-endian
@@ -113,6 +116,27 @@
 //                  lane of the sub-class inside the class
 // Each route adds its lanes in classes of two or more to cnt.
 //
+// Modes (template parameters of the same kernels, not copies of them):
+//
+//   keys     a pass sorts by 8 keys (_pass8) or 4 (bwt2's _pass4,
+//            lbzip2_tpu/ops/bwt2.py:158): the gathers, the digit passes
+//            of region L (3 a key) and the class starts take kKeys keys;
+//            a 4-key pass stores keys 4 to 7 as 0, so the block bins and
+//            seg_small compare 7 keys as ever
+//   cyclic   the v1 rotation sort (lbzip2_tpu/ops/bwt.py) on the rows as
+//            they stand: the seed's words are bytes (p + d) mod n, with
+//            JAX's second mod for n < 16 (_seed_sparse, :157-215), and
+//            the pads' key is sixteen FF bytes, which no valid key
+//            passes, so no rank moves and only a lone valid lane of
+//            sixteen FF bytes counts as unresolved (JAX forms the classes
+//            over the four words, :196-198); ranks are first slots among
+//            the valid lanes.  A pass's key j is N + ISA[(p + o_j) mod n],
+//            o_j = j k mod n taken in 64 bits by seg_setup (k passes n
+//            before the loop ends) into a table a row, read where used
+//   tie      the tie-break of equal rotations (fully periodic rows, left
+//            after loop_passes(N) cyclic passes): keys past key 0 are
+//            n - 1 - p, descending start (:90-95, :235-236), 4 keys
+//
 // What bounds it on the card.  The seed's digit passes carry 8 bytes a
 // lane (read and written once a pass, the hist reads 4), 4 of them over
 // every lane and 5 a round over the lanes of runs above kLarge; each
@@ -152,7 +176,7 @@ constexpr int kScanThreads = 1024;
 constexpr int kSeedWords = 4;               // the seed's 16 bytes
 constexpr int kWordDigits = 32 / kBits;     // digit passes a word
 constexpr int kLevels = kSeedWords - 1;     // rounds 0 to 2 find large runs
-constexpr int kPassKeys = 8;
+constexpr int kMaxKeys = 8;                 // a pass sorts by 4 or 8 keys
 constexpr int kKeyDigits = 3;               // 24 bits a mapped key
 constexpr int kMaxN = 1 << 23;              // 2N must fit 24 bits
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -175,27 +199,42 @@ __device__ __forceinline__ int row_n(const int* ns, int b, int N) {
   return min(max(ns[b], 0), N);
 }
 
-// Bytes p .. p + 3 of a row as a big-endian word, 0 at or past n.
+// q mod n for 0 <= q and n >= 1: one subtraction covers q < 2n, the
+// division the rest (only a row of n < 16 needs it).
+__device__ __forceinline__ int wrap(int q, int n) {
+  if (q >= n) q -= n;
+  if (q >= n) q %= n;
+  return q;
+}
+
+// Bytes p .. p + 3 of a row as a big-endian word: 0 at or past n, or in
+// the cyclic mode (kCyclic, the rotation sort) bytes (p + j) mod n.
+template <bool kCyclic>
 __device__ __forceinline__ unsigned word_at(const unsigned char* blocks,
                                             size_t base, int p, int n) {
   unsigned w = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int q = p + j;
-    w = (w << 8) | (q < n ? blocks[base + q] : 0u);
+    if constexpr (kCyclic)
+      w = (w << 8) | blocks[base + wrap(q, n)];
+    else
+      w = (w << 8) | (q < n ? blocks[base + q] : 0u);
   }
   return w;
 }
 
 // The three words at p + 4, p + 8 and p + 12 (W1..W3 of position p), 0
-// at or past n: from four or five aligned 32-bit loads where the row
-// starts on a word (N a multiple of 4) and they stay inside it (the
-// fifth reaches byte q + 18 at most), else byte by byte.
+// at or past n (cyclic: taken mod n): from four or five aligned 32-bit
+// loads where the row starts on a word (N a multiple of 4) and they stay
+// inside it (the fifth reaches byte q + 18 at most; cyclic: inside the
+// n bytes, so nothing wraps), else byte by byte.
+template <bool kCyclic>
 __device__ __forceinline__ void words_after(const unsigned char* blocks,
                                             size_t base, int p, int n, int N,
                                             unsigned (&w)[3]) {
   const int q = p + 4;
-  if ((N & 3) == 0 && q + 20 <= N) {
+  if ((N & 3) == 0 && q + 20 <= (kCyclic ? n : N)) {
     const unsigned* row =
         reinterpret_cast<const unsigned*>(blocks + base) + (q >> 2);
     unsigned x[5];
@@ -209,34 +248,69 @@ __device__ __forceinline__ void words_after(const unsigned char* blocks,
                        : sh == 2 ? 0x2345 : 0x3456;
 #pragma unroll
     for (int i = 0; i < 3; ++i) w[i] = __byte_perm(x[i], x[i + 1], sel);
+    if constexpr (!kCyclic) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {  // bytes at or past n read 0
-      const int lo = q + 4 * i;
-      if (lo + 4 > n)
-        w[i] = lo >= n ? 0u : w[i] & ~(0xFFFFFFFFu >> (8 * (n - lo)));
+      for (int i = 0; i < 3; ++i) {  // bytes at or past n read 0
+        const int lo = q + 4 * i;
+        if (lo + 4 > n)
+          w[i] = lo >= n ? 0u : w[i] & ~(0xFFFFFFFFu >> (8 * (n - lo)));
+      }
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) w[i] = word_at(blocks, base, q + 4 * i, n);
+    for (int i = 0; i < 3; ++i)
+      w[i] = word_at<kCyclic>(blocks, base, q + 4 * i, n);
   }
 }
 
-// Where a pass's digit pass reads its digit: the current ISA, at the
-// byte offset off_j, the digit's place in the mapped key at shift.
+// Where a pass's digit pass reads its digit: the current ISA, key j (its
+// offset off in the suffix mode, from the host: an index into the
+// kernel's parameters that only the card knows would copy them to local
+// memory in every thread), the digit's place in the mapped key at shift.
 struct Source {
   const int* isa;
+  int j;
   int off;
   int shift;
 };
 
+// A pass's key mappings (the template parameter kMap of its kernels):
+// the suffix sort's (bwt2), the rotation sort's (bwt), and the rotation
+// sort's tie-break of equal rotations by descending start.
+constexpr int kSuffix = 0, kCyclic = 1, kTieBreak = 2;
+
 struct Offsets {
-  int o[kPassKeys];  // off_j = min(j k, N)
+  int o[kMaxKeys];         // kSuffix: off_j = min(j k, N)
+  long long jk[kMaxKeys];  // kCyclic: j k, which seg_setup takes mod n
+  const int* row;          // kCyclic: (B, kMaxKeys) j k mod n a row
 };
 
+// Key j's offset in row b (the tie-break: -1 past key 0).  A cyclic
+// row's offsets are read where they are used, from the (L1-resident)
+// table seg_setup wrote, not held in registers.
+template <int kMap>
+__device__ __forceinline__ int key_offset(const Offsets& offs, int j, int b) {
+  if constexpr (kMap == kSuffix)
+    return offs.o[j];
+  else if constexpr (kMap == kCyclic)
+    return offs.row[b * kMaxKeys + j];
+  else
+    return j == 0 ? 0 : -1;
+}
+
+// The mapped key of lane p < n at offset off (see the head of the file).
+template <int kMap>
 __device__ __forceinline__ int pass_key(const int* isa, size_t base, int p,
                                         int off, int n, int N) {
-  const int q = p + off;
-  return q < n ? N + isa[base + q] : N - 1 - p;
+  if constexpr (kMap == kSuffix) {
+    const int q = p + off;
+    return q < n ? N + isa[base + q] : N - 1 - p;
+  } else if constexpr (kMap == kCyclic) {
+    const int q = p + off;  // off < n
+    return N + isa[base + (q >= n ? q - n : q)];
+  } else {
+    return off < 0 ? n - 1 - p : N + isa[base + p];
+  }
 }
 
 // The lanes of the warp whose d equals this lane's, d in [0, kRadix]
@@ -292,16 +366,22 @@ __device__ __forceinline__ void for_each_tile(const Work& work, Fn f) {
 // tile, and each lane's digit in digits[b][t] for the scatter; a tile
 // past the lanes writes nothing (the scan reads the tiles that hold
 // lanes).  ns gives the rows' lengths for the digits.
+template <int kMap>
 __device__ __forceinline__ void hist_tile(
     int b, int tile, const int* __restrict__ sa_in,
     const int* __restrict__ ns, const int* __restrict__ lanes,
     int* __restrict__ counts, unsigned char* __restrict__ digits,
-    const Source& g, int N, int T) {
+    const Offsets& offs, const Source& g, int N, int T) {
   __shared__ int h[kRadix];
   const int n = row_n(ns, b, N), nl = row_n(lanes, b, N);
   const size_t base = static_cast<size_t>(b) * N;
   const int t0 = tile * kTile;
   if (t0 >= nl) return;
+  int off;
+  if constexpr (kMap == kSuffix)
+    off = g.off;
+  else
+    off = key_offset<kMap>(offs, g.j, b);
   h[threadIdx.x] = 0;
   __syncthreads();
   {
@@ -314,7 +394,8 @@ __device__ __forceinline__ void hist_tile(
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
       const int t = t0 + r * kThreads + threadIdx.x;
-      d[r] = t < nl ? (pass_key(g.isa, base, p[r], g.off, n, N) >> g.shift) &
+      d[r] = t < nl ? (pass_key<kMap>(g.isa, base, p[r], off, n, N) >>
+                       g.shift) &
                           (kRadix - 1)
                     : kRadix;
       if (t < nl) digits[base + t] = static_cast<unsigned char>(d[r]);
@@ -331,13 +412,15 @@ __device__ __forceinline__ void hist_tile(
       h[threadIdx.x];
 }
 
+template <int kMap>
 __global__ void __launch_bounds__(kThreads)
 radix_hist(const int* __restrict__ sa_in, const int* __restrict__ ns,
            const int* __restrict__ lanes, Work work,
            int* __restrict__ counts, unsigned char* __restrict__ digits,
-           Source g, int N, int T) {
+           Offsets offs, Source g, int N, int T) {
   for_each_tile(work, [&](int b, int tile) {
-    hist_tile(b, tile, sa_in, ns, lanes, counts, digits, g, N, T);
+    hist_tile<kMap>(b, tile, sa_in, ns, lanes, counts, digits, offs, g, N,
+                    T);
   });
 }
 
@@ -538,11 +621,13 @@ struct Digit {
   const int* seg;
 };
 
+template <bool kCyc>
 __device__ __forceinline__ int2 load_payload(const Planes& in,
                                              const unsigned char* blocks,
                                              size_t base, int t, int n) {
   return in.key ? make_int2(in.key[base + t], in.val[base + t])
-                : make_int2(static_cast<int>(word_at(blocks, base, t, n)), t);
+                : make_int2(
+                      static_cast<int>(word_at<kCyc>(blocks, base, t, n)), t);
 }
 
 __device__ __forceinline__ int digit_of(const Digit& g, size_t base, int2 v) {
@@ -551,13 +636,14 @@ __device__ __forceinline__ int digit_of(const Digit& g, size_t base, int2 v) {
 }
 
 // The digit of lane t, reading only the word it needs.
+template <bool kCyc>
 __device__ __forceinline__ int digit_at(const Planes& in,
                                         const unsigned char* blocks,
                                         size_t base, int t, int n,
                                         const Digit& g) {
   unsigned x;
   if (!in.key)
-    x = word_at(blocks, base, t, n);
+    x = word_at<kCyc>(blocks, base, t, n);
   else if (g.seg)
     x = static_cast<unsigned>(g.seg[base + in.val[base + t]]);
   else
@@ -568,6 +654,7 @@ __device__ __forceinline__ int digit_at(const Planes& in,
 // kv_hist: counts[b][digit][tile] of the lanes < lanes[b] of one tile,
 // each warp adding its lanes one by one to a histogram of its own (the
 // scatter needs each lane's peers; the counts do not).
+template <bool kCyc>
 __global__ void __launch_bounds__(kThreads)
 kv_hist(Planes in, const unsigned char* __restrict__ blocks,
         const int* __restrict__ lanes, Work work, int* __restrict__ counts,
@@ -585,7 +672,7 @@ kv_hist(Planes in, const unsigned char* __restrict__ blocks,
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
       const int t = t0 + r * kThreads + threadIdx.x;
-      d[r] = t < nl ? digit_at(in, blocks, base, t, nl, g) : kRadix;
+      d[r] = t < nl ? digit_at<kCyc>(in, blocks, base, t, nl, g) : kRadix;
     }
     int* mine = h[threadIdx.x >> 5];
 #pragma unroll
@@ -608,6 +695,7 @@ constexpr size_t kStageSmem = 2 * kTile * sizeof(int) + kTile;
 // digits wait in shared memory (a byte each) and its peers are matched
 // again where they are used, so that the key and the value (kept in two
 // arrays of registers) leave room for 3 blocks an SM with no spill.
+template <bool kCyc>
 __device__ __forceinline__ void kv_scatter_tile(
     int b, int tile, const Planes& in, const unsigned char* __restrict__ blocks,
     const int* __restrict__ lanes, const int* __restrict__ offsets,
@@ -630,7 +718,7 @@ __device__ __forceinline__ void kv_scatter_tile(
     const int t = w0 + r * 32 + lane;
     vk[r] = vv[r] = 0;
     if (t < n) {
-      const int2 v = load_payload(in, blocks, base, t, n);
+      const int2 v = load_payload<kCyc>(in, blocks, base, t, n);
       vk[r] = v.x;
       vv[r] = v.y;
       din[r][threadIdx.x] = static_cast<unsigned char>(digit_of(g, base, v));
@@ -693,6 +781,7 @@ __device__ __forceinline__ void kv_scatter_tile(
   }
 }
 
+template <bool kCyc>
 __global__ void __launch_bounds__(kThreads, 3)
 kv_scatter(Planes in, const unsigned char* __restrict__ blocks,
            const int* __restrict__ lanes, Work work,
@@ -700,21 +789,23 @@ kv_scatter(Planes in, const unsigned char* __restrict__ blocks,
            Planes out, Digit g, int N, int T) {
   for (int i = work_first(work); i < work_items(work); i += work_step(work)) {
     const int2 bt = work_item(work, i);
-    kv_scatter_tile(bt.x, bt.y, in, blocks, lanes, offsets, totals, out, g, N,
-                    T);
+    kv_scatter_tile<kCyc>(bt.x, bt.y, in, blocks, lanes, offsets, totals, out,
+                          g, N, T);
     __syncthreads();  // the shared memory of the next item
   }
 }
 
 // ---- ranks from sorted lanes ----------------------------------------------
 
-// The key tuple of position p < n: the pass's 8 mapped keys.
+// The key tuple of position p < n of row b: the pass's kKeys mapped
+// keys.
+template <int kKeys, int kMap>
 __device__ __forceinline__ void keys_of(const int* isa, const Offsets& offs,
-                                        size_t base, int p, int n, int N,
-                                        int* key) {
+                                        int b, size_t base, int p, int n,
+                                        int N, int* key) {
 #pragma unroll
-  for (int j = 0; j < kPassKeys; ++j)
-    key[j] = pass_key(isa, base, p, offs.o[j], n, N);
+  for (int j = 0; j < kKeys; ++j)
+    key[j] = pass_key<kMap>(isa, base, p, key_offset<kMap>(offs, j, b), n, N);
 }
 
 // Calls f(b, tile) for the 256-lane rank tiles of the block's items: a
@@ -782,6 +873,7 @@ __device__ __forceinline__ bool start_flags(int b, int tile, int nl,
 // agg[b][tile] the tile's last start slot, or -1.  (start_flags does the
 // same for the seed's keys; given the pass's 8 gathered keys, ptxas
 // spilled it at 32 registers.)
+template <int kKeys, int kMap>
 __device__ __forceinline__ void flags_tile(
     int b, int tile, const int* __restrict__ sa, const int* __restrict__ ns,
     const int* __restrict__ lanes, const int* __restrict__ isa,
@@ -793,18 +885,18 @@ __device__ __forceinline__ void flags_tile(
   const int t = tile * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool live = t < nl;
-  int key[kPassKeys], prev[kPassKeys];
+  int key[kKeys], prev[kKeys];
 #pragma unroll
-  for (int i = 0; i < kPassKeys; ++i) key[i] = 0;
-  if (live) keys_of(isa, offs, base, sa[base + t], n, N, key);
+  for (int i = 0; i < kKeys; ++i) key[i] = 0;
+  if (live) keys_of<kKeys, kMap>(isa, offs, b, base, sa[base + t], n, N, key);
 #pragma unroll
-  for (int i = 0; i < kPassKeys; ++i)
+  for (int i = 0; i < kKeys; ++i)
     prev[i] = __shfl_up_sync(kFull, key[i], 1);
   if (live && lane == 0 && t > 0)
-    keys_of(isa, offs, base, sa[base + t - 1], n, N, prev);
+    keys_of<kKeys, kMap>(isa, offs, b, base, sa[base + t - 1], n, N, prev);
   bool start = t == 0;
 #pragma unroll
-  for (int i = 0; i < kPassKeys; ++i) start |= key[i] != prev[i];
+  for (int i = 0; i < kKeys; ++i) start |= key[i] != prev[i];
   if (t < N) flags[base + t] = live && start ? 1 : 0;
   int s = live && start ? t : -1;
 #pragma unroll
@@ -818,6 +910,7 @@ __device__ __forceinline__ void flags_tile(
   }
 }
 
+template <int kKeys, int kMap>
 __global__ void __launch_bounds__(kThreads)
 rank_flags(const int* __restrict__ sa, const int* __restrict__ ns,
            const int* __restrict__ lanes, Work work,
@@ -825,7 +918,8 @@ rank_flags(const int* __restrict__ sa, const int* __restrict__ ns,
            unsigned char* __restrict__ flags, int* __restrict__ agg, int N,
            int T2) {
   for_each_rank_tile<false>(work, lanes, N, [&](int b, int tile) {
-    flags_tile(b, tile, sa, ns, lanes, isa, offs, flags, agg, N, T2);
+    flags_tile<kKeys, kMap>(b, tile, sa, ns, lanes, isa, offs, flags, agg, N,
+                            T2);
   });
 }
 
@@ -923,7 +1017,8 @@ struct Seg {
   int* S;         // (B, N + 1): valid lanes below each value, S[N] = n
   int* F;         // (B, N): a class's dense end, then (compact) its start
   int* pos;       // (B, N): region L's lanes, then region A's
-  int* keys;      // (B, N, 8): region A's keys 0 to 7, by dense slot
+  int* keys;      // (B, N, 8): region A's keys 0 to 7 (a 4-key pass's 4
+                  // to 7 are 0), by dense slot
   int* tiles;     // (B, T, 3): the scan's tile sums, then their prefixes
   int* mcount;    // (kBins + 1): entries of each block bin's list, then
                   // of the work list
@@ -940,14 +1035,19 @@ __device__ __forceinline__ int3 tri(int c) {
 __global__ void seg_setup(const int* __restrict__ ns,
                           const int* __restrict__ prev,
                           int* __restrict__ cnt, int* __restrict__ passes,
-                          Rows rows, int* __restrict__ mcount, int B,
-                          int N) {
+                          Rows rows, int* __restrict__ mcount, Offsets offs,
+                          int* __restrict__ row_off, int B, int N) {
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     const bool work = prev == nullptr || prev[b] > 0;
-    rows.act[b] = work ? row_n(ns, b, N) : 0;
+    const int n = row_n(ns, b, N);
+    rows.act[b] = work ? n : 0;
     rows.remap[b] = 0;
     cnt[b] = 0;
     if (passes && work) passes[b] += 1;
+    if (row_off)  // a cyclic pass: its key offsets, j k mod n
+      for (int j = 0; j < kMaxKeys; ++j)
+        row_off[b * kMaxKeys + j] =
+            n > 0 ? static_cast<int>(offs.jk[j] % n) : 0;
   }
   if (threadIdx.x < kBins) mcount[threadIdx.x] = 0;
 }
@@ -1113,7 +1213,8 @@ seg_scan_apply(int* __restrict__ counts, Seg s, int N, int T) {
 
 // seg_compact: each tied lane p to its class's dense range (a warp whose
 // lanes are all of one class takes 32 slots at once), and region A's
-// keys 0 to 7 of it.
+// keys 0 to kKeys - 1 of it.
+template <int kKeys, int kMap>
 __global__ void __launch_bounds__(kThreads)
 seg_compact(const int* __restrict__ isa, Seg s, Offsets offs, int N) {
   const int b = blockIdx.y, a = s.rows.act[b];
@@ -1122,6 +1223,9 @@ seg_compact(const int* __restrict__ isa, Seg s, Offsets offs, int N) {
   const size_t base = static_cast<size_t>(b) * N;
   const size_t bS = static_cast<size_t>(b) * (N + 1);
   const int lane = threadIdx.x & 31;
+  const auto key = [&](int j, int p) {
+    return pass_key<kMap>(isa, base, p, key_offset<kMap>(offs, j, b), a, N);
+  };
   int vs[kRounds], cs[kRounds];  // the tile's loads first: in flight together
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
@@ -1152,13 +1256,11 @@ seg_compact(const int* __restrict__ isa, Seg s, Offsets offs, int N) {
     s.pos[base + slot] = p;
     if (c <= kLarge) {
       int4* kp = reinterpret_cast<int4*>(s.keys + (base + slot) * 8);
-      kp[0] = make_int4(v, pass_key(isa, base, p, offs.o[1], a, N),
-                        pass_key(isa, base, p, offs.o[2], a, N),
-                        pass_key(isa, base, p, offs.o[3], a, N));
-      kp[1] = make_int4(pass_key(isa, base, p, offs.o[4], a, N),
-                        pass_key(isa, base, p, offs.o[5], a, N),
-                        pass_key(isa, base, p, offs.o[6], a, N),
-                        pass_key(isa, base, p, offs.o[7], a, N));
+      kp[0] = make_int4(v, key(1, p), key(2, p), key(3, p));
+      if constexpr (kKeys == 8)
+        kp[1] = make_int4(key(4, p), key(5, p), key(6, p), key(7, p));
+      else  // the block sorts compare 7 keys: 4 to 7 equal
+        kp[1] = make_int4(0, 0, 0, 0);
     }
   }
 }
@@ -1252,7 +1354,8 @@ seg_small(int* __restrict__ isa, Seg s, int* __restrict__ cnt, int N) {
 
 // The classes a block bin ranks.  The pass's: v a value of the ISA, its
 // rank base S[v], its size, its dense range from F[v], keys 1 to 7 (all
-// below 2N).  The seed's (SeedClasses, below): v a run's first slot.
+// below 2N; a 4-key pass's keys 4 to 7 are 0).  The seed's (SeedClasses,
+// below): v a run's first slot.
 struct PassClasses {
   static constexpr int kKeys = 7;
   // threads a block and blocks an SM of the bins of 256, 1024 and 4096
@@ -1501,6 +1604,7 @@ seed_flags(SeedBufs sb, unsigned char* __restrict__ flags,
 // lane routes the run by its size: its size at its first slot and a
 // block bin (returned), or level r's large runs (its index and its
 // region place from one packed atomic, so places follow indices).
+template <bool kCyc>
 __device__ __forceinline__ int emit_lane(const SeedBufs& sb, int r, int b,
                                          size_t base, int n, int N, int slot,
                                          int p, int first, bool open,
@@ -1512,7 +1616,7 @@ __device__ __forceinline__ int emit_lane(const SeedBufs& sb, int r, int b,
     return -1;
   }
   unsigned w[kSeedWords - 1];
-  words_after(sb.blocks, base, p, n, N, w);
+  words_after<kCyc>(sb.blocks, base, p, n, N, w);
 #pragma unroll
   for (int j = 0; j < kSeedWords - 1; ++j)
     sb.keys[j * sb.plane + base + slot] = j < r ? 0 : static_cast<int>(w[j]);
@@ -1535,6 +1639,7 @@ __device__ __forceinline__ int emit_lane(const SeedBufs& sb, int r, int b,
 // seed_runs: round 0 over the sorted slots: every slot's run (cls), a
 // lone lane's rank, the words of the others, each run to its route;
 // ISA 0 at the lanes n .. N - 1.
+template <bool kCyc>
 __global__ void __launch_bounds__(kThreads)
 seed_runs(SeedBufs sb, const unsigned char* __restrict__ flags,
           const int* __restrict__ carry, int* __restrict__ isa, int N,
@@ -1548,8 +1653,8 @@ seed_runs(SeedBufs sb, const unsigned char* __restrict__ flags,
     const int t = tile * kThreads + threadIdx.x;
     int bin = -1;
     if (t < n)
-      bin = emit_lane(sb, 0, b, base, n, N, t, sb.sa[1][base + t], r.first,
-                      r.open, r.end, isa);
+      bin = emit_lane<kCyc>(sb, 0, b, base, n, N, t, sb.sa[1][base + t],
+                            r.first, r.open, r.end, isa);
     else if (t < N)
       isa[base + t] = 0;
     list_append(bin, b, r.first, sb.list, sb.mcount);
@@ -1631,6 +1736,7 @@ seed_round_flags(Planes in, const int* __restrict__ seg,
 // there; rounds 1 and 2 then as round 0 (emit_lane); after round 3 a
 // run's lanes agree in all 16 bytes: each takes its run's first slot,
 // and the lanes of runs of two or more count.
+template <bool kCyc>
 __global__ void __launch_bounds__(kThreads)
 seed_round(SeedBufs sb, Planes in, int r, const int* __restrict__ lanes,
            Work work, const unsigned char* __restrict__ flags,
@@ -1654,8 +1760,8 @@ seed_round(SeedBufs sb, Planes in, int r, const int* __restrict__ lanes,
       if (last)
         isa[base + p] = first;
       else
-        bin = emit_lane(sb, r, b, base, n, N, slot, p, first, rk.open,
-                        rk.end, isa);
+        bin = emit_lane<kCyc>(sb, r, b, base, n, N, slot, p, first, rk.open,
+                              rk.end, isa);
     }
     list_append(bin, b, first, sb.list, sb.mcount);
   });
@@ -1710,7 +1816,10 @@ seed_small(SeedBufs sb, int* __restrict__ isa, int* __restrict__ cnt,
 
 // seed_pads: one block a row with pads (n < N) whose run of W0 = FF FF
 // FF FF is not empty: a lane with K > P ranks N - n further, and a lone
-// lane with K = P is unresolved.
+// lane with K = P is unresolved.  In the cyclic mode the pads' key is
+// sixteen FF bytes, which no valid key passes: only a lone lane of
+// sixteen FF bytes is unresolved.
+template <bool kCyc>
 __global__ void __launch_bounds__(kThreads)
 seed_pads(SeedBufs sb, int* __restrict__ isa, int* __restrict__ cnt, int N) {
   __shared__ int equal;
@@ -1723,8 +1832,10 @@ seed_pads(SeedBufs sb, int* __restrict__ isa, int* __restrict__ cnt, int N) {
   for (int t = f + threadIdx.x; t < n; t += kThreads) {
     unsigned w[kSeedWords - 1];
     const int p = sb.sa[1][base + t];
-    words_after(sb.blocks, base, p, n, N, w);
-    if (w[0] | w[1] | w[2])
+    words_after<kCyc>(sb.blocks, base, p, n, N, w);
+    if constexpr (kCyc)
+      m += (w[0] & w[1] & w[2]) == kFull;
+    else if (w[0] | w[1] | w[2])
       isa[base + p] += N - n;
     else
       ++m;
@@ -1743,6 +1854,7 @@ struct Scratch {
   int* totals;
   Seg seg;
   char* levels;  // the seed's counters, FF-run starts and large runs
+  int* row_off;  // (B, kMaxKeys): a cyclic pass's key offsets
 };
 
 size_t align_up(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
@@ -1755,7 +1867,7 @@ size_t seed_levels_bytes(int B, int N) {
          kBins * 4;
 }
 
-constexpr int kParts = 20;
+constexpr int kParts = 21;
 
 // The entries a block bin's list may need: every class above its lower
 // bound, in every row.
@@ -1770,7 +1882,8 @@ size_t list_cap(int B, int N, int i) {
 // segmented pass's (S, F, pos, keys, the tile sums, five ints a row, the
 // list counts, the lists and the work items), then the seed's (three
 // levels of B packed counters, B FF-run starts, and three levels of
-// (B, segcap) places and first slots of large runs).
+// (B, segcap) places and first slots of large runs), then a cyclic
+// pass's key offsets, kMaxKeys a row.
 size_t layout(int B, int N, size_t* part) {
   const size_t lanes = static_cast<size_t>(B) * N;
   const size_t T = (N + kTile - 1) / kTile, T2 = (N + kThreads - 1) / kThreads;
@@ -1782,7 +1895,8 @@ size_t layout(int B, int N, size_t* part) {
       static_cast<size_t>(B) * 4, static_cast<size_t>(B) * 4,
       static_cast<size_t>(B) * 4, (kBins + 1) * 4,
       (list_cap(B, N, 0) + list_cap(B, N, 1) + list_cap(B, N, 2)) * 8,
-      B * T * 8, seed_levels_bytes(B, N)};
+      B * T * 8, seed_levels_bytes(B, N),
+      static_cast<size_t>(B) * kMaxKeys * 4};
   size_t at = 0;
   for (int i = 0; i < kParts; ++i) {
     part[i] = at;
@@ -1806,6 +1920,7 @@ Scratch carve(void* scratch, int B, int N) {
   g.keys = i32(9);
   g.tiles = i32(10);
   g.rows = {i32(11), i32(12), i32(13), i32(14), i32(15)};
+  w.row_off = i32(20);
   g.mcount = i32(16);
   g.list[0] = reinterpret_cast<int2*>(s + part[17]);
   g.list[1] = g.list[0] + list_cap(B, N, 0);
@@ -1877,20 +1992,21 @@ int allow_smem(size_t bytes) {
 // row, from the compacted lanes sa_first), leaving the sorted lanes in
 // w.sa[1] (an even number of passes); the tiles are the work list's
 // items.
+template <int kKeys, int kMap>
 int digit_passes(const int* isa, const int* ns, const int* lanes,
                  const int* sa_first, const Work& work, dim3 grid,
                  const Scratch& w, const Offsets& offs, int B, int N,
                  cudaStream_t s) {
   const int T = (N + kTile - 1) / kTile;
-  constexpr int kPasses = kPassKeys * kKeyDigits;
+  constexpr int kPasses = kKeys * kKeyDigits;
   static_assert((kPasses & 1) == 0, "the sorted suffix array ends in sa[1]");
   const int* in = sa_first;
   for (int i = 0; i < kPasses; ++i) {
-    const Source g{isa, offs.o[kPassKeys - 1 - i / kKeyDigits],
-                   kBits * (i % kKeyDigits)};
+    const int j = kKeys - 1 - i / kKeyDigits;
+    const Source g{isa, j, offs.o[j], kBits * (i % kKeyDigits)};
     int* out = w.sa[i & 1];
-    radix_hist<<<grid, kThreads, 0, s>>>(in, ns, lanes, work, w.counts,
-                                         w.flags, g, N, T);
+    radix_hist<kMap><<<grid, kThreads, 0, s>>>(in, ns, lanes, work, w.counts,
+                                               w.flags, offs, g, N, T);
     LAUNCHED();
     radix_scan<<<(B * kRadix + kWarps - 1) / kWarps, kThreads, 0, s>>>(
         lanes, w.counts, w.totals, B, N, T);
@@ -1904,21 +2020,21 @@ int digit_passes(const int* isa, const int* ns, const int* lanes,
 }
 
 // A key-carrying digit pass from `in` to `out`: hist, scan, scatter.
+template <bool kCyc>
 int kv_pass(const Planes& in, const Planes& out,
             const unsigned char* blocks, const int* lanes, const Work& work,
             dim3 grid, const Digit& g, const Scratch& w, int B, int N,
             cudaStream_t s) {
   const int T = (N + kTile - 1) / kTile;
-  RETURN_IF(allow_smem<kv_scatter>(kStageSmem));
-  kv_hist<<<grid, kThreads, 0, s>>>(in, blocks, lanes, work, w.counts, g, N,
-                                    T);
+  RETURN_IF(allow_smem<kv_scatter<kCyc>>(kStageSmem));
+  kv_hist<kCyc><<<grid, kThreads, 0, s>>>(in, blocks, lanes, work, w.counts,
+                                          g, N, T);
   LAUNCHED();
   radix_scan<<<(B * kRadix + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       lanes, w.counts, w.totals, B, N, T);
   LAUNCHED();
-  kv_scatter<<<grid, kThreads, kStageSmem, s>>>(in, blocks, lanes, work,
-                                                w.counts, w.totals, out, g, N,
-                                                T);
+  kv_scatter<kCyc><<<grid, kThreads, kStageSmem, s>>>(
+      in, blocks, lanes, work, w.counts, w.totals, out, g, N, T);
   LAUNCHED();
   return 0;
 }
@@ -2002,30 +2118,14 @@ int multiprocessors(int* sms) {
   return 0;
 }
 
-}  // namespace
-
-// Bytes of scratch a (B, N) call needs.
-extern "C" long long lbz2t_bwt2_scratch_bytes(int B, int N) {
-  size_t part[kParts];
-  return static_cast<long long>(layout(B, N, part));
-}
-
-// _seed16: blocks (B, N) uint8, ns (B,) int32 -> isa (B, N) int32 (0 at
-// lanes >= n), cnt (B,) int32.
-extern "C" int lbz2t_bwt2_seed(const void* blocks, const void* ns, void* isa,
-                               void* cnt, void* scratch, int B, int N,
-                               void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (N >= kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+// The seed on the caller's stream (see lbz2t_bwt2_seed).
+template <bool kCyc>
+int seed(const unsigned char* bl, const int* n, int* out, int* c,
+         void* scratch, int B, int N, cudaStream_t s) {
   int sms = 0;
   RETURN_IF(multiprocessors(&sms));
   const Scratch w = carve(scratch, B, N);
   const Seg& g = w.seg;
-  const auto* bl = static_cast<const unsigned char*>(blocks);
-  const auto* n = static_cast<const int*>(ns);
-  auto* out = static_cast<int*>(isa);
-  auto* c = static_cast<int*>(cnt);
-  const auto s = static_cast<cudaStream_t>(stream);
   const SeedBufs sb = seed_bufs(w, bl, n, B, N);
   const int T = (N + kTile - 1) / kTile, T2 = (N + kThreads - 1) / kThreads;
   const dim3 grid(T, B), grid2(T2, B), grid_l(sms * 8);
@@ -2037,15 +2137,15 @@ extern "C" int lbz2t_bwt2_seed(const void* blocks, const void* ns, void* isa,
   Planes in{nullptr, nullptr};
   for (int i = 0; i < kWordDigits; ++i) {
     const Planes to{sb.w0[i & 1], sb.sa[i & 1]};
-    RETURN_IF(kv_pass(in, to, bl, n, tiles, grid, Digit{kBits * i, nullptr},
-                      w, B, N, s));
+    RETURN_IF(kv_pass<kCyc>(in, to, bl, n, tiles, grid,
+                            Digit{kBits * i, nullptr}, w, B, N, s));
     in = to;
   }
   seed_flags<<<grid2, kThreads, 0, s>>>(sb, w.flags, w.agg, N, T2);
   LAUNCHED();
   rank_carry<<<B, kScanThreads, 0, s>>>(n, w.agg, N, T2);
   LAUNCHED();
-  seed_runs<<<grid2, kThreads, 0, s>>>(sb, w.flags, w.agg, out, N, T2);
+  seed_runs<kCyc><<<grid2, kThreads, 0, s>>>(sb, w.flags, w.agg, out, N, T2);
   LAUNCHED();
   // rounds 1 to 3: the runs above kLarge lanes by their next word, then
   // the run's index, the word moving with the lane
@@ -2074,8 +2174,8 @@ extern "C" int lbz2t_bwt2_seed(const void* blocks, const void* ns, void* isa,
       const Digit d = i < kWordDigits
                           ? Digit{kBits * i, nullptr}
                           : Digit{kBits * (i - kWordDigits), sb.seg};
-      RETURN_IF(kv_pass(lin, to, nullptr, g.rows.nL, items, grid_l, d, w, B,
-                        N, s));
+      RETURN_IF(kv_pass<kCyc>(lin, to, nullptr, g.rows.nL, items, grid_l, d,
+                              w, B, N, s));
       lin = to;
     }
     seed_round_flags<<<grid_l, kThreads, 0, s>>>(lin, sb.seg, g.rows.nL,
@@ -2084,8 +2184,8 @@ extern "C" int lbz2t_bwt2_seed(const void* blocks, const void* ns, void* isa,
     LAUNCHED();
     rank_carry<<<B, kScanThreads, 0, s>>>(g.rows.nL, w.agg, N, T2);
     LAUNCHED();
-    seed_round<<<grid_l, kThreads, 0, s>>>(sb, lin, r, g.rows.nL, items,
-                                           w.flags, w.agg, out, c, N, T2);
+    seed_round<kCyc><<<grid_l, kThreads, 0, s>>>(
+        sb, lin, r, g.rows.nL, items, w.flags, w.agg, out, c, N, T2);
     LAUNCHED();
   }
   RETURN_IF(static_cast<int>(cudaStreamWaitEvent(s, side->join, 0)));
@@ -2096,35 +2196,27 @@ extern "C" int lbz2t_bwt2_seed(const void* blocks, const void* ns, void* isa,
   seed_small<<<grid, kThreads, 0, s>>>(sb, out, c, N);
   LAUNCHED();
   // the pad key, on the run of W0 = FF FF FF FF
-  seed_pads<<<B, kThreads, 0, s>>>(sb, out, c, N);
+  seed_pads<kCyc><<<B, kThreads, 0, s>>>(sb, out, c, N);
   LAUNCHED();
   return 0;
 }
 
-// _pass8 in place: isa (B, N) int32 (values in [0, N) at lanes < n;
-// lanes >= n neither read nor written), k >= 1, ns (B,) int32; prev
-// (B,) int32 or null: a row whose prev is 0 is skipped; cnt (B,) int32
-// out; passes (B,) int32 or null: += 1 for each row not skipped;
-// counts (B, N) int32, all 0, and left so.
-extern "C" int lbz2t_bwt2_pass(void* isa, const void* ns, const void* prev,
-                               void* cnt, void* passes, void* counts,
-                               void* scratch, int B, int N, long long k,
-                               void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (N >= kMaxN || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+// One pass of kKeys keys under mapping kMap, in place (see
+// lbz2t_bwt2_pass).
+template <int kKeys, int kMap>
+int pass(int* is, const int* ns, const int* prev, int* c, int* passes,
+         int* cv, void* scratch, int B, int N, long long k, cudaStream_t s) {
   Offsets offs;
-  for (int j = 0; j < kPassKeys; ++j) {
+  for (int j = 0; j < kMaxKeys; ++j) {
     const long long o = j * k;
     offs.o[j] = static_cast<int>(o < N ? o : N);
+    offs.jk[j] = o;
   }
   int sms = 0;
   RETURN_IF(multiprocessors(&sms));
   const Scratch w = carve(scratch, B, N);
   const Seg& g = w.seg;
-  auto* is = static_cast<int*>(isa);
-  auto* c = static_cast<int*>(cnt);
-  auto* cv = static_cast<int*>(counts);
-  const auto s = static_cast<cudaStream_t>(stream);
+  offs.row = w.row_off;
   const int T = (N + kTile - 1) / kTile;
   const int T2 = (N + kThreads - 1) / kThreads;
   const dim3 grid(T, B);
@@ -2132,10 +2224,10 @@ extern "C" int lbz2t_bwt2_pass(void* isa, const void* ns, const void* prev,
   const Work items{g.work, g.mcount + kBins};
   const dim3 grid_l(sms * 8);
 
-  seg_setup<<<1, kScanThreads, 0, s>>>(static_cast<const int*>(ns),
-                                       static_cast<const int*>(prev), c,
-                                       static_cast<int*>(passes), g.rows,
-                                       g.mcount, B, N);
+  seg_setup<<<1, kScanThreads, 0, s>>>(ns, prev, c, passes, g.rows, g.mcount,
+                                       offs,
+                                       kMap == kCyclic ? w.row_off : nullptr,
+                                       B, N);
   LAUNCHED();
   seg_hist<<<grid, kThreads, 0, s>>>(is, g.rows.act, cv, N);
   LAUNCHED();
@@ -2147,14 +2239,13 @@ extern "C" int lbz2t_bwt2_pass(void* isa, const void* ns, const void* prev,
   LAUNCHED();
   seg_scan_apply<<<grid, kThreads, 0, s>>>(cv, g, N, T);
   LAUNCHED();
-  seg_compact<<<grid, kThreads, 0, s>>>(is, g, offs, N);
+  seg_compact<kKeys, kMap><<<grid, kThreads, 0, s>>>(is, g, offs, N);
   LAUNCHED();
   // region L: the digit passes from its compacted lanes, the class starts
-  RETURN_IF(digit_passes(is, g.rows.act, g.rows.nL, g.pos, items, grid_l, w,
-                         offs, B, N, s));
-  rank_flags<<<grid_l, kThreads, 0, s>>>(w.sa[1], g.rows.act, g.rows.nL,
-                                         items, is, offs, w.flags, w.agg, N,
-                                         T2);
+  RETURN_IF((digit_passes<kKeys, kMap>(is, g.rows.act, g.rows.nL, g.pos,
+                                       items, grid_l, w, offs, B, N, s)));
+  rank_flags<kKeys, kMap><<<grid_l, kThreads, 0, s>>>(
+      w.sa[1], g.rows.act, g.rows.nL, items, is, offs, w.flags, w.agg, N, T2);
   LAUNCHED();
   // every gather is done: the writes
   seg_remap<<<grid, kThreads, 0, s>>>(is, g, N);
@@ -2169,4 +2260,65 @@ extern "C" int lbz2t_bwt2_pass(void* isa, const void* ns, const void* prev,
                                          w.agg, g.S, g.F, is, c, N, T2);
   LAUNCHED();
   return 0;
+}
+
+}  // namespace
+
+// Bytes of scratch a (B, N) call needs.
+extern "C" long long lbz2t_bwt2_scratch_bytes(int B, int N) {
+  size_t part[kParts];
+  return static_cast<long long>(layout(B, N, part));
+}
+
+// The seed: blocks (B, N) uint8, ns (B,) int32 -> isa (B, N) int32 (0 at
+// lanes >= n), cnt (B,) int32.  cyclic 0: bwt2's _seed16, the 16-byte
+// prefix of each suffix (bytes at or past n read 0, the pads' key rule);
+// cyclic 1: the rotation sort's _seed_sparse (lbzip2_tpu/ops/bwt.py:157),
+// bytes (p + d) mod n, each rank the first slot of its class among the
+// valid lanes.
+extern "C" int lbz2t_bwt2_seed(const void* blocks, const void* ns, void* isa,
+                               void* cnt, void* scratch, int B, int N,
+                               int cyclic, void* stream) {
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  if (N >= kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* bl = static_cast<const unsigned char*>(blocks);
+  const auto* n = static_cast<const int*>(ns);
+  auto* out = static_cast<int*>(isa);
+  auto* c = static_cast<int*>(cnt);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return cyclic ? seed<true>(bl, n, out, c, scratch, B, N, s)
+                : seed<false>(bl, n, out, c, scratch, B, N, s);
+}
+
+// One doubling pass in place: isa (B, N) int32 (values in [0, N) at
+// lanes < n; lanes >= n neither read nor written), k >= 1, ns (B,) int32;
+// prev (B,) int32 or null: a row whose prev is 0 is skipped; cnt (B,)
+// int32 out; passes (B,) int32 or null: += 1 for each row not skipped;
+// counts (B, N) int32, all 0, and left so.  nkeys and mapping pick the
+// keys: (8, 0) bwt2's _pass8 and (4, 0) its _pass4 (offsets j k clamped
+// to N, sentinels past n); (8, 1) the rotation sort's pass (N + isa at
+// (p + j k) mod n); (4, 2) its tie-break (keys 1 to 3 the descending
+// start n - 1 - p).
+extern "C" int lbz2t_bwt2_pass(void* isa, const void* ns, const void* prev,
+                               void* cnt, void* passes, void* counts,
+                               void* scratch, int B, int N, long long k,
+                               int nkeys, int mapping, void* stream) {
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  if (N >= kMaxN || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto* is = static_cast<int*>(isa);
+  const auto* n = static_cast<const int*>(ns);
+  const auto* pv = static_cast<const int*>(prev);
+  auto* c = static_cast<int*>(cnt);
+  auto* ps = static_cast<int*>(passes);
+  auto* cv = static_cast<int*>(counts);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nkeys == 8 && mapping == kSuffix)
+    return pass<8, kSuffix>(is, n, pv, c, ps, cv, scratch, B, N, k, s);
+  if (nkeys == 4 && mapping == kSuffix)
+    return pass<4, kSuffix>(is, n, pv, c, ps, cv, scratch, B, N, k, s);
+  if (nkeys == 8 && mapping == kCyclic)
+    return pass<8, kCyclic>(is, n, pv, c, ps, cv, scratch, B, N, k, s);
+  if (nkeys == 4 && mapping == kTieBreak)
+    return pass<4, kTieBreak>(is, n, pv, c, ps, cv, scratch, B, N, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

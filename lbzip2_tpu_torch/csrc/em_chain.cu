@@ -317,6 +317,9 @@ extern "C" int lbz2t_em_ctas(int B, int G) {
 // sel (B, G) int32 out, G = ceil(NP / 50); freqs (B, 6, 259) int32,
 // zero in, the last E-step's counts out; ctl (2 + cluster_factor) int32,
 // zero in, ctl[1] the E-steps executed out.  All device pointers.
+// cluster_factor 1 is one E-step alone: a single em_estep launch on the
+// given lengths, no M-step, nothing read of the control words but done
+// = 0 (ops/chain.py::em_estep_batch).
 extern "C" int lbz2t_em_chain(const void* mtfv, const void* nm,
                               const void* ninuse, const void* nt,
                               void* lengths, void* sel, void* freqs,

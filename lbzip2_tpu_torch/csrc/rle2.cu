@@ -48,7 +48,9 @@
 //               into a row histogram in the scratch, then one
 //               acquire-release atomic on the row's counter.  The CTA of
 //               lane n - 1 knows the row's Run: it writes nm and adds the
-//               pad count G * 50 - nm at lane min(ninuse + 2, 258).  The
+//               pad count G * 50 - nm at lane min(ninuse + 2, 258) (with
+//               `pads` 0 it adds none: the histogram of mtfv[:nm] alone,
+//               lbzip2_tpu/ops/chain.py::chain_mtf's).  The
 //               row's last CTA to finish (a counter a row) moves the
 //               row's histogram to the output and leaves the scratch's
 //               zero.  Tiles past lane n - 1's write nothing.
@@ -340,7 +342,7 @@ __device__ Run look_back(const Desc* rd, int t, int epoch, int lane) {
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
     rle2_scan(const int* __restrict__ ranks, const int* __restrict__ ns,
               const int* __restrict__ ninuse, int B, int N, int tiles,
-              int vec, int epoch, int* __restrict__ mtfv,
+              int vec, int pads, int epoch, int* __restrict__ mtfv,
               int* __restrict__ nm_out, int* __restrict__ hist,
               Desc* __restrict__ desc, int* __restrict__ state) {
   __shared__ __align__(16) int sm[kStaged];  // ranks, then the values
@@ -447,7 +449,8 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm)
   if (closes && tid == 0) {
     nm_out[b] = nm;
     const int G = (N + 1 + kGroup - 1) / kGroup;
-    atomicAdd(&rstate[min(ninuse[b] + 2, kWidth - 1)], G * kGroup - nm);
+    if (pads)
+      atomicAdd(&rstate[min(ninuse[b] + 2, kWidth - 1)], G * kGroup - nm);
   }
   // the row's last CTA to get here moves its histogram to the output:
   // the CTA's atomics, then one release of the row's counter (and its
@@ -501,12 +504,13 @@ extern "C" long long lbz2t_rle2_state_ints(int B) {
 }
 
 // ranks (B, N), ns and ninuse (B,) int32 in; mtfv (B, N + 1), nm (B,) and
-// hist (B, 259) int32 out; desc and state as above, epoch in 1 .. 2^29 - 1
-// and not the previous call's on this desc; all device pointers.
+// hist (B, 259) int32 out (with pads non-zero the padded groups' count
+// too); desc and state as above, epoch in 1 .. 2^29 - 1 and not the
+// previous call's on this desc; all device pointers.
 extern "C" int lbz2t_rle2(const void* ranks, const void* ns,
                           const void* ninuse, void* mtfv, void* nm,
                           void* hist, void* desc, void* state, int B, int N,
-                          int epoch, void* stream) {
+                          int pads, int epoch, void* stream) {
   if (B <= 0 || N < 0 || epoch <= 0 || epoch >= (1 << 29))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -515,7 +519,7 @@ extern "C" int lbz2t_rle2(const void* ranks, const void* ns,
                   reinterpret_cast<unsigned long long>(ranks) % 16 == 0;
   rle2_scan<<<B * tiles, kThreads, 0, s>>>(
       static_cast<const int*>(ranks), static_cast<const int*>(ns),
-      static_cast<const int*>(ninuse), B, N, tiles, vec, epoch,
+      static_cast<const int*>(ninuse), B, N, tiles, vec, pads, epoch,
       static_cast<int*>(mtfv), static_cast<int*>(nm),
       static_cast<int*>(hist), static_cast<Desc*>(desc),
       static_cast<int*>(state));

@@ -28,6 +28,7 @@ from lbzip2_tpu_torch.device import resolve, upload
 from lbzip2_tpu_torch.ops.chain import chain_payloads
 from lbzip2_tpu_torch.parallel.sharding import (AXIS, _block_stage,
                                                 decode_batch_sharded,
+                                                encode_batch_sharded,
                                                 encode_batch_sharded_tokens,
                                                 encode_batch_sharded_v2,
                                                 make_mesh)
@@ -92,8 +93,11 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
     the sharded bwt2 encode, the sharded token emit, the sharded device
     entropy chain with every payload byte-exact against
     ``native.encode_payload`` and the stream through ``bz2.decompress``,
-    and the sharded IBWT decode back to the RLE1 rows.  Returns what it
-    checked; raises on any difference."""
+    and the sharded IBWT decode back to the RLE1 rows; then the sharded
+    per-block stage (``_block_stage``: the v1 rotation sort and the MTF
+    ranks) on the RLE1 rows as they stand, whose BWT rows and primaries
+    must be bwt2's.  Returns what it checked; raises on any
+    difference."""
     mesh = make_mesh(n_devices, device)
     B = n_devices
     blocks, ns, ms, raws, cmaps, rle_rows = dryrun_blocks(B, width)
@@ -146,9 +150,19 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
     plains = decode_batch_sharded(bwt_rows, ns, primary, mesh)
     for b in range(B):
         assert np.array_equal(plains[b, :ns[b]], rle_rows[b]), b
+
+    # the v1 stage, sharded, on the unrotated rows: the same BWT
+    unrotated = np.zeros_like(blocks)
+    for b in range(B):
+        unrotated[b, :ns[b]] = rle_rows[b]
+    v1_rows, v1_primary, _ = encode_batch_sharded(unrotated, ns, mesh)
+    for b in range(B):
+        assert v1_primary[b] == primary[b] and np.array_equal(
+            v1_rows[b, :ns[b]], bwt_rows[b, :ns[b]]), \
+            f"the v1 stage's row {b} differs from bwt2's"
     return {"devices": [str(d) for d in mesh], "blocks": B, "width": width,
             "token_rows": token_rows, "chain_rows": chain_rows,
-            "stream_bytes": len(stream)}
+            "v1_rows": B, "stream_bytes": len(stream)}
 
 
 if __name__ == "__main__":

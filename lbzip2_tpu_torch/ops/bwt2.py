@@ -7,8 +7,11 @@ host rotates each block to its least rotation, whose suffix order is
 its rotation order, so ranks at ``i + k`` are read from an ISA extended
 with position-coded end sentinels ``n - p - 2^30`` (``_extend``).
 
-The two suffix sorts, ``_seed16`` and ``_pass8``, run the hand-written
-kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor.  The seed sorts the
+The two suffix sorts, ``_seed16`` and ``_passx`` (``_pass8``, and
+``_pass4`` with four keys, a template parameter of the pass's kernels),
+run the hand-written kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor;
+``seed_into`` and ``pass_into`` also launch their cyclic and tie-break
+modes for the rotation sort of ``ops/bwt.py``.  The seed sorts the
 lanes < n by their first 4-byte word W0 in 4 stable 8-bit radix passes
 that carry the word with the lane; runs of equal W0 of two or more
 lanes are then sorted by W1..W3 (gathered once a lane), each in a bin
@@ -22,7 +25,7 @@ ISA is updated in place.  The kernels' ISA is defined on the lanes < n only: the
 writes 0 past them and a pass leaves them as they are; no reader looks
 there (``_extend``, ``_pass8``'s key 0 and the emits mask them, the
 primary index reads a lane < n).  For a CPU tensor they run the plain
-versions, ``_seed16_plain`` and ``_pass8_plain``, which also fill the
+versions, ``_seed16_plain`` and ``_passx_plain``, which also fill the
 pad lanes as JAX does.  The resolve loop queues its passes on the card
 and reads nothing there.
 
@@ -68,6 +71,7 @@ SEG_BLOCKS = (256, 1024, 4096)
 
 launches = 0       # seeds and passes that launched the CUDA kernels
 pass_launches = 0  # of those, the passes (_pass8, and the loop's on the card)
+pass4_launches = 0  # _pass4's launches (counted apart from the two above)
 emit_launches = 0   # emit_bytes' launch pairs (_emit_bytes, _emit2)
 token_launches = 0  # emit_tokens calls (_emit2): a scan and its tail each
 _held = threading.local()  # a thread's kernel scratch, per device
@@ -169,9 +173,9 @@ def _extend(ISA, idxB, nB, N):
     return torch.cat([body, tail], dim=1)
 
 
-def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
-    """One doubling pass: sort by ranks at offsets 0, k, .., 7k (the
-    JAX ``_passx`` with m = 8, the only width its main path runs).
+def _passx_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor, nkeys: int):
+    """One doubling pass: sort by ranks at offsets 0, k, .., (nkeys-1)k
+    (the JAX ``_passx``, lbzip2_tpu/ops/bwt2.py:125; nkeys even).
 
     Reads at offset j*k use JAX's dynamic_slice semantics: the start is
     clamped to N, so past the window the tail sentinels at i + N are
@@ -183,7 +187,7 @@ def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
     nB = ns[:, None]
     ext = _extend(ISA, idxB, nB, N)
     rs = [torch.where(idxB < nB, ISA, _INF)]  # pads sort last
-    for j in range(1, 8):
+    for j in range(1, nkeys):
         off = min(j * k, N)
         r = ext[:, off:off + N]
         if j >= 2:
@@ -193,6 +197,16 @@ def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
         rs.append(r)
     sk, perm = _lex_sort(rs)
     return _ranks(sk, perm, nB)
+
+
+def _pass8_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
+    """``_passx_plain`` with 8 keys, the width the main path runs."""
+    return _passx_plain(ISA, k, ns, 8)
+
+
+def _pass4_plain(ISA: torch.Tensor, k: int, ns: torch.Tensor):
+    """``_passx_plain`` with 4 keys (lbzip2_tpu/ops/bwt2.py:158)."""
+    return _passx_plain(ISA, k, ns, 4)
 
 
 def _by_bins(sizes: torch.Tensor, last: str) -> dict:
@@ -249,9 +263,10 @@ def _lib():
         lib.lbz2t_bwt2_scratch_bytes.argtypes = [ctypes.c_int] * 2
         lib.lbz2t_bwt2_scratch_bytes.restype = ctypes.c_longlong
         lib.lbz2t_bwt2_seed.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.lbz2t_bwt2_pass.argtypes = [ctypes.c_void_p] * 7 + \
-            [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
+            [ctypes.c_int] * 2 + [ctypes.c_longlong] + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.lbz2t_bwt2_seed.restype = lib.lbz2t_bwt2_pass.restype = \
             ctypes.c_int
     return lib
@@ -309,27 +324,21 @@ def _checked(src: torch.Tensor, ns: torch.Tensor, dtype):
     return _lib()
 
 
-def _launched(name: str, err: int) -> None:
-    """Count a launch of the kernels, or raise on its error."""
-    global launches
+def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"bwt2 {name} kernels' launch failed: "
                            f"cudaError {err}")
-    launches += 1
 
 
-def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
-    """Initial ISA from the 16-byte suffix prefix (k = 16 afterwards):
-    (ISA (B, N) int32, cnt (B,) int32).  The kernels of
-    ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA 0 at lanes >= n; they
-    run round 0's block bins on a second stream of the calling thread,
-    joined back into the current one before the call returns), the
-    plain version for a CPU tensor."""
-    if blocks.device.type == "cpu":
-        return _seed16_plain(blocks, ns)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {blocks.device}")
-    lib = _checked(blocks, ns, torch.uint8)
+# the pass's key mappings (csrc/bwt2_sort.cu kSuffix, kCyclic, kTieBreak)
+SUFFIX, CYCLIC, TIE_BREAK = 0, 1, 2
+
+
+def seed_into(lib, blocks: torch.Tensor, ns: torch.Tensor, cyclic: bool):
+    """Queue the seed kernels on the current stream of the blocks'
+    device (checked by the caller; nothing counted): (ISA (B, N) int32, 0
+    at lanes >= n; cnt (B,) int32).  ``cyclic`` picks the rotation sort's
+    seed (ops/bwt.py) over bwt2's."""
     B, N = blocks.shape
     dev = blocks.device
     with torch.cuda.device(dev):  # the C side launches on it
@@ -340,21 +349,24 @@ def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
         ns = ns.to(torch.int32).contiguous()
         scratch, _ = _workspace(dev, lib.lbz2t_bwt2_scratch_bytes(B, N),
                                 B * N)
-        _launched("seed", lib.lbz2t_bwt2_seed(
+        _raise_on("seed", lib.lbz2t_bwt2_seed(
             blocks.data_ptr(), ns.data_ptr(), isa.data_ptr(), cnt.data_ptr(),
-            scratch.data_ptr(), B, N,
+            scratch.data_ptr(), B, N, int(cyclic),
             torch.cuda.current_stream(dev).cuda_stream))
     return isa, cnt
 
 
-def _pass_in_place(lib, isa: torch.Tensor, k: int, ns: torch.Tensor,
-                   prev: torch.Tensor | None, cnt: torch.Tensor,
-                   passes: torch.Tensor | None) -> None:
-    """One segmented pass on the card, in place on ``isa`` (checked by
-    the caller): cnt (B,) gets the unresolved counts; a row whose
-    ``prev`` count is 0 is skipped (the identity, exactly: its ISA is
-    resolved); ``passes`` (B,) counts the rows' passes that were not."""
-    global pass_launches
+def pass_into(lib, isa: torch.Tensor, k: int, ns: torch.Tensor,
+              prev: torch.Tensor | None, cnt: torch.Tensor,
+              passes: torch.Tensor | None, nkeys: int = 8,
+              mapping: int = SUFFIX) -> None:
+    """Queue one segmented pass on the card, in place on ``isa``
+    (checked by the caller; nothing counted): cnt (B,) gets the
+    unresolved counts; a row whose ``prev`` count is 0 is skipped (the
+    identity, exactly: its ISA is resolved); ``passes`` (B,) counts the
+    rows' passes that were not.  ``nkeys`` and ``mapping`` pick the keys
+    (``lbz2t_bwt2_pass``: 8 or 4 keys by SUFFIX, 8 by CYCLIC, 4 by
+    TIE_BREAK)."""
     B, N = isa.shape
     if B == 0 or N == 0:
         cnt.zero_()
@@ -364,25 +376,47 @@ def _pass_in_place(lib, isa: torch.Tensor, k: int, ns: torch.Tensor,
         ns = ns.to(torch.int32).contiguous()
         scratch, counts = _workspace(
             dev, lib.lbz2t_bwt2_scratch_bytes(B, N), B * N)
-        _launched("pass", lib.lbz2t_bwt2_pass(
+        _raise_on("pass", lib.lbz2t_bwt2_pass(
             isa.data_ptr(), ns.data_ptr(),
             None if prev is None else prev.data_ptr(), cnt.data_ptr(),
             None if passes is None else passes.data_ptr(),
-            counts.data_ptr(), scratch.data_ptr(), B, N, int(k),
-            torch.cuda.current_stream(dev).cuda_stream))
+            counts.data_ptr(), scratch.data_ptr(), B, N, int(k), int(nkeys),
+            int(mapping), torch.cuda.current_stream(dev).cuda_stream))
+
+
+def _seed16(blocks: torch.Tensor, ns: torch.Tensor):
+    """Initial ISA from the 16-byte suffix prefix (k = 16 afterwards):
+    (ISA (B, N) int32, cnt (B,) int32).  The kernels of
+    ``csrc/bwt2_sort.cu`` for a CUDA tensor (ISA 0 at lanes >= n; they
+    run round 0's block bins on a second stream of the calling thread,
+    joined back into the current one before the call returns), the
+    plain version for a CPU tensor."""
+    global launches
+    if blocks.device.type == "cpu":
+        return _seed16_plain(blocks, ns)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    lib = _checked(blocks, ns, torch.uint8)
+    out = seed_into(lib, blocks, ns, cyclic=False)
+    launches += 1
+    return out
+
+
+def _pass_in_place(lib, isa: torch.Tensor, k: int, ns: torch.Tensor,
+                   prev: torch.Tensor | None, cnt: torch.Tensor,
+                   passes: torch.Tensor | None) -> None:
+    """One 8-key segmented pass on the card, in place on ``isa``
+    (``pass_into``), counted."""
+    global launches, pass_launches
+    pass_into(lib, isa, k, ns, prev, cnt, passes)
+    launches += 1
     pass_launches += 1
 
 
-def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
-    """One doubling pass by ranks at offsets 0, k, .., 7k: (ISA', cnt).
-    The segmented kernels of ``csrc/bwt2_sort.cu`` for a CUDA tensor, on
-    a copy of ``ISA`` (ISA values in [0, N) at lanes < n, as every ISA of
-    the loop holds; ISA' is defined on the lanes < n, the others keep
-    the input's values), the plain version for a CPU tensor."""
-    if ISA.device.type == "cpu":
-        return _pass8_plain(ISA, k, ns)
-    if ISA.device.type != "cuda":
-        raise ValueError(f"unsupported device {ISA.device}")
+def _pass_copy(ISA: torch.Tensor, k: int, ns: torch.Tensor, nkeys: int,
+               mapping: int):
+    """One pass of the kernels on a copy of ``ISA``, checked: (ISA',
+    cnt)."""
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     lib = _checked(ISA, ns, torch.int32)
@@ -390,8 +424,43 @@ def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
         out = ISA.clone()
         cnt = torch.empty(ISA.shape[0], dtype=torch.int32,
                           device=ISA.device)
-        _pass_in_place(lib, out, k, ns, None, cnt, None)
+        pass_into(lib, out, k, ns, None, cnt, None, nkeys, mapping)
     return out, cnt
+
+
+def _passx(ISA: torch.Tensor, k: int, ns: torch.Tensor, nkeys: int):
+    """One doubling pass by ranks at offsets 0, k, .., (nkeys-1)k, nkeys
+    4 or 8 (lbzip2_tpu/ops/bwt2.py:125): (ISA', cnt).  The segmented
+    kernels of ``csrc/bwt2_sort.cu`` (their key count a template
+    parameter) for a CUDA tensor, on a copy of ``ISA`` (ISA values in
+    [0, N) at lanes < n, as every ISA of the loop holds; ISA' is defined
+    on the lanes < n, the others keep the input's values), the plain
+    version for a CPU tensor."""
+    global launches, pass_launches, pass4_launches
+    if nkeys not in (4, 8):
+        raise ValueError(f"nkeys must be 4 or 8, got {nkeys}")
+    if ISA.device.type == "cpu":
+        return _passx_plain(ISA, k, ns, nkeys)
+    if ISA.device.type != "cuda":
+        raise ValueError(f"unsupported device {ISA.device}")
+    out = _pass_copy(ISA, k, ns, nkeys, SUFFIX)
+    if nkeys == 8:
+        launches += 1
+        pass_launches += 1
+    else:
+        pass4_launches += 1
+    return out
+
+
+def _pass4(ISA: torch.Tensor, k: int, ns: torch.Tensor):
+    """``_passx`` with 4 keys, at offsets 0, k, 2k and 3k
+    (lbzip2_tpu/ops/bwt2.py:158)."""
+    return _passx(ISA, k, ns, 4)
+
+
+def _pass8(ISA: torch.Tensor, k: int, ns: torch.Tensor):
+    """``_passx`` with 8 keys, the width the main path runs."""
+    return _passx(ISA, k, ns, 8)
 
 
 def _emit_bytes_plain(blocks: torch.Tensor, ISA: torch.Tensor,
@@ -823,6 +892,14 @@ class Bwt2Task:
             for b in range(counts.shape[0]):
                 rows.append(rb[b, :self.ns_np[b]])
         return rows, primary.numpy()
+
+
+# the JAX module's jitted names (lbzip2_tpu/ops/bwt2.py:240-244)
+seed16 = _seed16
+pass4 = _pass4
+pass8 = _pass8
+emit2 = _emit2
+emit_bytes = _emit_bytes
 
 
 def bwt2_batch(blocks_np, ns, ms, device: str | torch.device = "cuda"):

@@ -5,7 +5,10 @@ path).  Layouts and dtypes at every public function follow the JAX
 package, except that a JAX uint32 word is held as int64 masked to 32
 bits (see lbzip2_tpu_torch/interop.py).  The host steps are those of
 the JAX ``chain_payloads``: ``generate_initial_trees``,
-``native.chain_finish`` and the header splice.
+``native.chain_finish`` and the header splice.  The JAX module's other
+two device programs are here too, on no path: ``chain_mtf`` (the v1
+chain, its histogram of mtfv[:nm] alone) and ``em_estep_batch`` (one
+E-step).
 """
 
 from __future__ import annotations
@@ -21,12 +24,14 @@ from lbzip2_tpu_torch.core.constants import GROUP_SIZE, MAX_TREES
 from lbzip2_tpu_torch.device import upload
 from lbzip2_tpu_torch.interop import M32
 from lbzip2_tpu_torch.ops import lookback
-from lbzip2_tpu_torch.ops.huffenc import em_chain_rows
+from lbzip2_tpu_torch.ops.huffenc import em_chain_cuda, em_chain_rows
 from lbzip2_tpu_torch.ref.huffman import (generate_initial_trees,
                                           num_trees_for)
-from lbzip2_tpu_torch.ops.mtf_pallas import (_compact_syms,  # noqa: F401
-                                              mtf_ranks_bytes_rows)
-from lbzip2_tpu_torch.ops.rle2 import WIDTH, _rle2_batch, rle2_hist_rows
+from lbzip2_tpu_torch.ops.mtf_pallas import (_compact_syms,
+                                              mtf_ranks_bytes_rows,
+                                              mtf_ranks_plain)
+from lbzip2_tpu_torch.ops.rle2 import (WIDTH, _rle2_batch, _rle2_plain,
+                                       rle2_hist_rows)
 from lbzip2_tpu_torch.parallel.sharding import run_shards
 
 _SLOT_WORDS = 32            # 1024 bits >= 50 codes * 20 bits + padding
@@ -82,6 +87,48 @@ def _chain_mtf2(bwt: torch.Tensor, ns: torch.Tensor, cmaps: torch.Tensor):
     return mtfv, nm, hist, hist_g, ngroups
 
 
+def _hist_rows(ids: torch.Tensor, valid: torch.Tensor, nbins: int):
+    """Per-row histogram (B, nbins) int32 of ids (B, L) in [0, nbins)
+    under the mask ``valid`` (lbzip2_tpu/ops/chain.py:71, which merges
+    sorted probes; here a bincount)."""
+    B, L = ids.shape
+    rows = torch.arange(B, device=ids.device)[:, None] * (nbins + 1)
+    idx = torch.where(valid, ids.long(), nbins) + rows
+    return torch.bincount(idx.reshape(-1), minlength=B * (nbins + 1)) \
+        .reshape(B, nbins + 1)[:, :nbins].int()
+
+
+def _chain_mtf_plain(bwt: torch.Tensor, ns: torch.Tensor,
+                     cmaps: torch.Tensor):
+    """The plain version of ``chain_mtf``: ``_compact_syms``, the plain
+    MTF, ``_rle2_plain`` and ``_hist_rows`` of mtfv[:nm]."""
+    ninuse = cmaps.int().sum(1, dtype=torch.int32)
+    ranks = mtf_ranks_plain(_compact_syms(bwt, cmaps), ns)
+    mtfv, nm = _rle2_plain(ranks, ns, ninuse)
+    lanes = torch.arange(mtfv.shape[1], device=mtfv.device)[None]
+    return mtfv, nm, _hist_rows(mtfv, lanes < nm[:, None], WIDTH)
+
+
+chain_mtf_launches = 0  # chain_mtf calls that ran the kernels
+
+
+def chain_mtf(bwt: torch.Tensor, ns: torch.Tensor, cmaps: torch.Tensor):
+    """BWT bytes -> (mtfv (B, N+1) int32, nm (B,) int32, hist (B, WIDTH)
+    int32), hist the count of mtfv[:nm] a row
+    (lbzip2_tpu/ops/chain.py:100, the v1 chain).  For a CUDA tensor the
+    MTF kernel's byte entry, then the RLE2 kernel with its histogram
+    flagged to skip the padded groups' count (``rle2_hist_rows(...,
+    pads=False)``); the plain version for a CPU one."""
+    global chain_mtf_launches
+    if bwt.device.type == "cpu":
+        return _chain_mtf_plain(bwt, ns, cmaps)
+    ninuse = cmaps.int().sum(1, dtype=torch.int32)
+    ranks = mtf_ranks_bytes_rows(bwt, cmaps, ns)
+    out = rle2_hist_rows(ranks, ns, ninuse, pads=False)
+    chain_mtf_launches += 1
+    return out
+
+
 def _em_estep_hist(hist: torch.Tensor, ngroups: torch.Tensor,
                    nt: torch.Tensor, lengths: torch.Tensor):
     """One batched EM expectation step with the spec's base-1024 lane
@@ -113,6 +160,43 @@ def _em_estep_hist(hist: torch.Tensor, ngroups: torch.Tensor,
     onehot = (bt[:, None, :] == trees[None, :, None]) & gvalid[:, None, :]
     freqs = torch.bmm(onehot.double(), hd).int()  # (B, T, WIDTH)
     return bt, freqs
+
+
+estep_launches = 0  # em_estep_batch calls that ran the E-step kernel
+
+
+def _em_estep_batch_plain(mtfv, nm, ninuse, nt, lengths):
+    """The plain version of ``em_estep_batch``: ``_group_hist``, then
+    ``_em_estep_hist``."""
+    hist, _, ngroups = _group_hist(mtfv, nm, ninuse)
+    bt, freqs = _em_estep_hist(hist, ngroups, nt, lengths)
+    return bt, freqs, ngroups
+
+
+def em_estep_batch(mtfv: torch.Tensor, nm: torch.Tensor,
+                   ninuse: torch.Tensor, nt: torch.Tensor,
+                   lengths: torch.Tensor):
+    """One EM expectation step from the symbols
+    (lbzip2_tpu/ops/chain.py:200): mtfv (B, NP) int32, nm / ninuse / nt
+    (B,) int32, lengths (B, 6, WIDTH) int32 -> (selectors (B, G) int32
+    of all G = ceil(NP / 50) groups, freqs (B, 6, WIDTH) int32, ngroups
+    (B,) int32 = ceil(nm / 50)).  For a CUDA tensor one launch of the
+    E-step kernel of ``csrc/em_chain.cu``: the EM loop's entry at one
+    iteration (``lbz2t_em_chain`` with cluster_factor 1 launches
+    ``em_estep`` once, its control words zero and no M-step), the plain
+    version for a CPU one."""
+    global estep_launches
+    if mtfv.device.type == "cpu":
+        return _em_estep_batch_plain(mtfv, nm, ninuse, nt, lengths)
+    sel, freqs, _, _ = em_chain_cuda(mtfv, nm, ninuse, nt, lengths, 1)
+    estep_launches += 1
+    return sel, freqs, ((nm + GROUP_SIZE - 1) // GROUP_SIZE).int()
+
+
+# the JAX module's jitted names (lbzip2_tpu/ops/chain.py)
+group_hist = _group_hist
+em_estep_hist = _em_estep_hist
+chain_mtf2 = _chain_mtf2
 
 
 def _pack_groups_plain(mtfv: torch.Tensor, nm: torch.Tensor,

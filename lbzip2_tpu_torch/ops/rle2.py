@@ -12,7 +12,10 @@ the kernel is ``csrc/rle2.cu`` (tiles of 4096 lanes summed up as runs
 that combine associatively, in one pass: each tile takes the runs before
 it by decoupled look-back, then emits the runs that end in it, counting
 the histogram from what it emits; a second, write-only launch zeroes the
-lanes past nm).  Both give JAX's output exactly.
+lanes past nm).  Both give JAX's output exactly.  With ``pads=False``
+the histogram leaves out the padded groups' count: the histogram of
+mtfv[:nm] that lbzip2_tpu/ops/chain.py::chain_mtf makes (a flag of the
+kernel).
 
 ``rle2_hist_rows`` and ``_rle2_batch`` take the plain version only for a
 CPU tensor.  For a CUDA tensor they launch the kernel or raise.
@@ -89,11 +92,13 @@ _FLAT_WAYS = 32
 
 
 def _flat_hist(mtfv: torch.Tensor, nm: torch.Tensor,
-               ninuse: torch.Tensor) -> torch.Tensor:
+               ninuse: torch.Tensor, pads: bool = True) -> torch.Tensor:
     """Flat symbol histogram (B, WIDTH) int32 of the padded groups,
     counted from the symbols: the values of
     ``ops/chain.py::_group_hist(...)[0].sum(1)`` (the pad positions at
-    lane ``as``, the clamp to lane 258) without the per-group tensor."""
+    lane ``as``, the clamp to lane 258) without the per-group tensor.
+    Without ``pads``, the histogram of mtfv[:nm] alone (JAX's
+    ``chain_mtf``)."""
     B, NP = mtfv.shape
     dev = mtfv.device
     G = (NP + GROUP_SIZE - 1) // GROUP_SIZE
@@ -110,25 +115,26 @@ def _flat_hist(mtfv: torch.Tensor, nm: torch.Tensor,
     hist = torch.bincount(idx.reshape(-1),
                           minlength=B * _FLAT_WAYS * (WIDTH + 1))
     hist = hist.reshape(B, _FLAT_WAYS, WIDTH + 1).sum(1)[:, :WIDTH].int()
-    pads = (G * GROUP_SIZE - live.sum(1)).int()
-    hist.scatter_add_(1, (ninuse + 2).clamp(max=WIDTH - 1).long()[:, None],
-                      pads[:, None])
+    if pads:
+        hist.scatter_add_(1,
+                          (ninuse + 2).clamp(max=WIDTH - 1).long()[:, None],
+                          (G * GROUP_SIZE - live.sum(1)).int()[:, None])
     return hist
 
 
 def rle2_hist_plain(ranks: torch.Tensor, ns: torch.Tensor,
-                    ninuse: torch.Tensor):
+                    ninuse: torch.Tensor, pads: bool = True):
     """The plain version of ``rle2_hist_rows``: ``_rle2_plain``, then
     ``_flat_hist`` of its output."""
     mtfv, nm = _rle2_plain(ranks, ns, ninuse)
-    return mtfv, nm, _flat_hist(mtfv, nm, ninuse)
+    return mtfv, nm, _flat_hist(mtfv, nm, ninuse, pads)
 
 
 def _lib():
     lib = _build.load("rle2")
     fn = lib.lbz2t_rle2
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.lbz2t_rle2_desc_ints.argtypes = [ctypes.c_int] * 2
@@ -139,7 +145,7 @@ def _lib():
 
 
 def rle2_hist_cuda(ranks: torch.Tensor, ns: torch.Tensor,
-                   ninuse: torch.Tensor):
+                   ninuse: torch.Tensor, pads: bool = True):
     """Launch the CUDA kernels on the current stream (no synchronize,
     nothing read on the host): ``rle2_scan``, then ``rle2_tail``; the
     tile descriptors and counters are the calling thread's
@@ -172,7 +178,7 @@ def rle2_hist_cuda(ranks: torch.Tensor, ns: torch.Tensor,
                              ninuse.data_ptr(), mtfv.data_ptr(),
                              nm.data_ptr(), hist.data_ptr(),
                              desc.data_ptr(), state.data_ptr(), B, N,
-                             epoch,
+                             int(pads), epoch,
                              torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"rle2 kernel launch failed: cudaError "
@@ -182,19 +188,20 @@ def rle2_hist_cuda(ranks: torch.Tensor, ns: torch.Tensor,
 
 
 def rle2_hist_rows(ranks: torch.Tensor, ns: torch.Tensor,
-                   ninuse: torch.Tensor):
+                   ninuse: torch.Tensor, pads: bool = True):
     """RLE2 with the flat histogram of the padded groups.
 
     ranks (B, N) int32 (entries >= n ignored); ns, ninuse (B,) int32.
     Returns (mtfv (B, N+1) int32 compacted to the front, 0 at and beyond
     nm; nm (B,) int32 MTF-value counts including EOB; hist (B, WIDTH)
-    int32: every lane < nm by its value clamped to 258, plus
-    G * 50 - nm pads at lane min(ninuse + 2, 258), G = ceil((N+1)/50)).
-    The CUDA kernel for CUDA tensors, the plain version for CPU ones."""
+    int32: every lane < nm by its value clamped to 258, plus, with
+    ``pads``, G * 50 - nm pads at lane min(ninuse + 2, 258),
+    G = ceil((N+1)/50)).  The CUDA kernel for CUDA tensors (the flag
+    skips the pads' count there), the plain version for CPU ones."""
     if ranks.device.type == "cuda":
-        return rle2_hist_cuda(ranks, ns, ninuse)
+        return rle2_hist_cuda(ranks, ns, ninuse, pads)
     if ranks.device.type == "cpu":
-        return rle2_hist_plain(ranks, ns, ninuse)
+        return rle2_hist_plain(ranks, ns, ninuse, pads)
     raise ValueError(f"unsupported device {ranks.device}")
 
 

@@ -22,9 +22,9 @@ import threading
 import numpy as np
 import torch
 
-from lbzip2_tpu_torch import native
 from lbzip2_tpu_torch.device import on, resolve, upload
-from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_full, bwt2_tokens
+from lbzip2_tpu_torch.ops.bwt import bwt_batched
+from lbzip2_tpu_torch.ops.bwt2 import bwt2_full, bwt2_tokens
 from lbzip2_tpu_torch.ops.ibwt import ibwt_rows
 from lbzip2_tpu_torch.ops.mtf_pallas import mtf_ranks_rows
 
@@ -122,34 +122,17 @@ def _block_stage_rows(dev: torch.device, blocks, ns):
     int32, ranks (B, N) int32) tensors on ``dev`` of the rotation BWT of
     blocks[b, :ns[b]] and the MTF ranks of its compacted symbols.
 
-    JAX computes the BWT with the v1 rotation sort (ops/bwt.py), which
-    the port does not carry; the same function comes from the host's
-    ``native.lyndon_prep``, the production ``bwt2_bytes`` on the least
-    rotation, and for a fully periodic block the host BWT (both hold
-    the descending-position tie-break).  Lanes at and past n are 0.
-    The used bytes are counted over the whole row, padding included,
-    with byte 0 used only if it occurs more often than the padding, as
-    JAX does."""
+    The BWT is the v1 rotation sort, ``ops/bwt.py::bwt_batched``, as
+    JAX's stage runs ``bwt_masked`` (on a card its kernels, periodic
+    blocks among them, with nothing read on the host).  Lanes at and past
+    n are 0.  The used bytes are counted over the whole row, padding
+    included, with byte 0 used only if it occurs more often than the
+    padding, as JAX does."""
     blocks = np.ascontiguousarray(blocks, np.uint8)
     ns = np.asarray(ns, np.int32)
     B, N = blocks.shape
-    rot = np.zeros_like(blocks)
-    ms = np.zeros(B, np.int32)
-    periodic = []
-    for b in range(B):
-        _, m = native.lyndon_prep(blocks[b, :ns[b]], out=rot[b, :ns[b]])
-        ms[b] = m
-        if m < 0:
-            periodic.append(b)
     blocks_d, ns_d = upload(blocks, dev), upload(ns, dev)
-    bwt, primary = bwt2_bytes(upload(rot, dev), ns_d,
-                              upload(np.maximum(ms, 0), dev))
-    for b in periodic:  # the host convention for equal rotations
-        row, idx = native.bwt(blocks[b, :ns[b]])
-        bwt[b, :ns[b]] = upload(row, dev)
-        primary[b] = idx
-    lanes = torch.arange(N, device=dev)[None]
-    bwt = torch.where(lanes < ns_d[:, None], bwt, 0).to(torch.uint8)
+    bwt, primary = bwt_batched(blocks_d, ns_d)
     hist = torch.zeros((B, 256), dtype=torch.int32, device=dev)
     hist.scatter_add_(1, blocks_d.long(), torch.ones_like(blocks_d,
                                                           dtype=torch.int32))

@@ -64,14 +64,24 @@ def radix_pass(sa: np.ndarray, digits: np.ndarray) -> np.ndarray:
     return out
 
 
-def offsets(k: int) -> list:
-    return [min(j * k, N) for j in range(KEYS)]
+def offsets(k: int, nkeys: int = KEYS) -> list:
+    return [min(j * k, N) for j in range(nkeys)]
 
 
-def pass_keys(isa: np.ndarray, n: int, p: np.ndarray, k: int) -> np.ndarray:
-    """(len(p), 8) mapped keys: N + ISA[p + off_j] inside the row, else
-    N - 1 - p."""
-    q = p[:, None] + np.array(offsets(k))
+def pass_keys(isa: np.ndarray, n: int, p: np.ndarray, k: int,
+              nkeys: int = KEYS, mapping: str = "suffix") -> np.ndarray:
+    """(len(p), nkeys) mapped keys: N + ISA[p + off_j] inside the row,
+    else N - 1 - p.  The rotation sort's: "cyclic", N + ISA at
+    (p + (j k mod n)) mod n; "tie", N + ISA[p], then n - 1 - p."""
+    if mapping == "cyclic":
+        q = p[:, None] + np.array([(j * k) % max(n, 1)
+                                   for j in range(nkeys)])
+        return (N + isa[np.where(q >= n, q - n, q)]).astype(np.int64)
+    if mapping == "tie":
+        out = np.repeat((n - 1 - p)[:, None], nkeys, 1)
+        out[:, 0] = N + isa[p]
+        return out.astype(np.int64)
+    q = p[:, None] + np.array(offsets(k, nkeys))
     inside = q < n
     return np.where(inside, N + isa[np.minimum(q, N - 1)],
                     N - 1 - p[:, None]).astype(np.int64)
@@ -110,12 +120,17 @@ def rank_step(sa, keys, n):
     return isa, int(open_.sum())
 
 
-def model_pass8(isa: np.ndarray, k: int, n: int):
-    cols = [lambda sa, j=j, s=s: (pass_keys(isa, n, sa, k)[:, j] >>
+def model_pass8(isa: np.ndarray, k: int, n: int, nkeys: int = KEYS,
+                mapping: str = "suffix"):
+    """A pass as the digit passes run it: ``nkeys`` keys by
+    ``mapping`` (``pass_keys``), three digits a key, keys last to
+    first."""
+    cols = [lambda sa, j=j, s=s: (pass_keys(isa, n, sa, k, nkeys,
+                                            mapping)[:, j] >>
                                   (BITS * s)) & (RADIX - 1)
-            for j in reversed(range(KEYS)) for s in range(KEY_DIGITS)]
+            for j in reversed(range(nkeys)) for s in range(KEY_DIGITS)]
     sa = sort_lanes(n, cols)
-    return rank_step(sa, pass_keys(isa, n, sa, k), n)
+    return rank_step(sa, pass_keys(isa, n, sa, k, nkeys, mapping), n)
 
 
 # -- inputs -----------------------------------------------------------------

@@ -48,10 +48,14 @@ SRC = ROOT / "lbzip2_tpu_torch" / "csrc" / "bwt2_sort.cu"
 
 # -- the kernels' algorithm -------------------------------------------------
 
-def words(row, n, p):
-    """(len(p), 4) uint64: W0..W3 of positions p, bytes at or past n 0."""
+def words(row, n, p, cyclic=False):
+    """(len(p), 4) uint64: W0..W3 of positions p, bytes at or past n 0
+    (``cyclic``, the rotation sort's seed: bytes (p + d) mod n)."""
     q = np.asarray(p, np.int64)[:, None] + np.arange(16)
-    b = np.where(q < n, row[np.minimum(q, N - 1)], 0).astype(np.uint64)
+    if cyclic:
+        b = row[q % max(n, 1)].astype(np.uint64)
+    else:
+        b = np.where(q < n, row[np.minimum(q, N - 1)], 0).astype(np.uint64)
     b = b.reshape(-1, 4, 4)
     return (b[:, :, 0] << 24) | (b[:, :, 1] << 16) | (b[:, :, 2] << 8) | \
         b[:, :, 3]
@@ -75,7 +79,8 @@ def starts_of(keys):
     return st
 
 
-def emit(row, n, r, slots, ps, keys_by_slot, isa, large, binned, routes):
+def emit(row, n, r, slots, ps, keys_by_slot, isa, large, binned, routes,
+         cyclic=False):
     """Round r's runs, as its lanes stand in sorted order at ``slots``
     (consecutive row slots) with positions ``ps``, given their run
     starts: a lone lane's rank is its slot; the others gather
@@ -89,7 +94,7 @@ def emit(row, n, r, slots, ps, keys_by_slot, isa, large, binned, routes):
         lone = starts & end
         isa[ps[lone]] = slots[lone]
         tied = ~lone
-        w = words(row, n, ps[tied])[:, 1:]
+        w = words(row, n, ps[tied], cyclic)[:, 1:]
         w[:, :r] = 0
         keys_by_slot[slots[tied]] = w
         out = []
@@ -107,17 +112,20 @@ def emit(row, n, r, slots, ps, keys_by_slot, isa, large, binned, routes):
     return route
 
 
-def model_seed(row, n, bins=BINS, rng=None, routes=None):
+def model_seed(row, n, bins=BINS, rng=None, routes=None, cyclic=False):
     """One row's seed: (ISA (N,) int64, 0 past n; cnt).  ``rng`` lists
     each round's runs in a random order (the kernels take their places
-    from an atomic); ``routes`` counts the runs each route took."""
+    from an atomic); ``routes`` counts the runs each route took.
+    ``cyclic``: the rotation sort's seed, words gathered mod n, and the
+    pads' key sixteen FF bytes (a lone valid lane of that key counts as
+    unresolved when the row has pads; no rank moves)."""
     small, caps = bins
     large = caps[-1]
     isa = np.zeros(N, np.int64)
     if n == 0:
         return isa, 0
     # round 0: (W0, p) by W0's digits, the key carried; its runs
-    w0, pos = words(row, n, np.arange(n))[:, 0], np.arange(n)
+    w0, pos = words(row, n, np.arange(n), cyclic)[:, 0], np.arange(n)
     for d in range(4):
         w0, pos = digit_pass((w0 >> (BITS * d)) & 255, w0, pos)
     slot = np.arange(n)
@@ -126,7 +134,7 @@ def model_seed(row, n, bins=BINS, rng=None, routes=None):
     start = np.ones(n, bool)
     start[1:] = w0[1:] != w0[:-1]
     level = emit(row, n, 0, slot, pos, keys, isa, large, binned,
-                 routes)(start)
+                 routes, cyclic)(start)
     # rounds 1 to 3: the runs above `large` by (run index, W_r)
     for r in (1, 2, 3):
         if not level:
@@ -157,7 +165,7 @@ def model_seed(row, n, bins=BINS, rng=None, routes=None):
             level = []
         else:
             level = emit(row, n, r, new_slot, lpos[u], keys, isa, large,
-                         binned, routes)(st)
+                         binned, routes, cyclic)(st)
     # the bins, by W1..W3 of their slots
     for f, c in binned:
         kk = keys[f:f + c]
@@ -180,7 +188,11 @@ def model_seed(row, n, bins=BINS, rng=None, routes=None):
             route = next(f"block_{cap}" for cap in caps if c <= cap)
         if routes is not None:
             routes[route] = routes.get(route, 0) + 1
-    if n < N:  # the pads' key FF FF FF FF 0..: the run of W0 = FF alone
+    if n < N and cyclic:  # the pads' key: sixteen FF bytes
+        ff = slot[w0 == FF]
+        allff = (words(row, n, pos[ff], True)[:, 1:] == FF).all(1)
+        cnt += int(allff.sum() == 1)
+    elif n < N:  # the pads' key FF FF FF FF 0..: the run of W0 = FF alone
         ff = slot[w0 == FF]
         if ff.size:
             rest = words(row, n, pos[ff])[:, 1:].any(1)  # gathered again

@@ -44,10 +44,21 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 # -- the kernels' algorithm -------------------------------------------------
 
-def mapped_keys(isa, n, p, k):
-    """(len(p), 8) keys N + ISA[p + off_j] inside the row, else N - 1 - p,
-    off_j = min(j k, N); key 0 is N + ISA[p]."""
-    q = p[:, None] + np.array([min(j * k, N) for j in range(KEYS)])
+def mapped_keys(isa, n, p, k, nkeys=KEYS, mapping="suffix"):
+    """(len(p), nkeys) keys N + ISA[p + off_j] inside the row, else
+    N - 1 - p, off_j = min(j k, N); key 0 is N + ISA[p].  The rotation
+    sort's mappings: "cyclic", N + ISA[(p + (j k mod n)) mod n], the
+    offset taken mod n in 64 bits; "tie", n - 1 - p past key 0."""
+    p = np.asarray(p, np.int64)
+    if mapping == "cyclic":
+        off = np.array([(j * k) % max(n, 1) for j in range(nkeys)])
+        q = p[:, None] + off
+        return (N + isa[np.where(q >= n, q - n, q)]).astype(np.int64)
+    if mapping == "tie":
+        out = np.repeat((n - 1 - p)[:, None], nkeys, 1)
+        out[:, 0] = N + isa[p]
+        return out.astype(np.int64)
+    q = p[:, None] + np.array([min(j * k, N) for j in range(nkeys)])
     inside = q < n
     return np.where(inside, N + isa[np.minimum(q, N - 1)],
                     N - 1 - p[:, None]).astype(np.int64)
@@ -60,11 +71,14 @@ def starts_of(keys):
     return st
 
 
-def model_pass(isa, k, n, prev=None, bins=BINS, rng=None, routes=None):
+def model_pass(isa, k, n, prev=None, bins=BINS, rng=None, routes=None,
+               nkeys=KEYS, mapping="suffix"):
     """One row's pass in place on ``isa`` (N,) int64: returns cnt.  A row
     whose ``prev`` count is 0 is left alone.  ``rng`` shuffles the
     order of the lanes inside every class; ``routes`` (a dict) counts
-    the classes each route took."""
+    the classes each route took.  ``nkeys`` keys (4 or 8: a 4-key pass
+    stores keys 4 to 7 as 0 for the 7-key block sorts) by ``mapping``
+    (``mapped_keys``)."""
     small, blocks = bins
     large = blocks[-1]
     if prev == 0:
@@ -92,15 +106,17 @@ def model_pass(isa, k, n, prev=None, bins=BINS, rng=None, routes=None):
     pos[slot] = by_class
     keys = np.zeros((N, KEYS), np.int64)
     a_lanes = slot >= n_l
-    keys[slot[a_lanes]] = mapped_keys(isa, n, by_class[a_lanes], k)
+    keys[slot[a_lanes], :nkeys] = mapped_keys(isa, n, by_class[a_lanes], k,
+                                              nkeys, mapping)
     keys[slot[a_lanes], 0] = vc[a_lanes]
     # region L's digit passes gather too: before any write
     lpos = pos[:n_l]
-    for j in reversed(range(KEYS)):
+    for j in reversed(range(nkeys)):
         for d in range(KEY_DIGITS):
-            digit = (mapped_keys(isa, n, lpos, k)[:, j] >> (BITS * d)) & 255
+            digit = (mapped_keys(isa, n, lpos, k, nkeys, mapping)[:, j] >>
+                     (BITS * d)) & 255
             lpos = lpos[np.argsort(digit, kind="stable")]
-    lkeys = mapped_keys(isa, n, lpos, k)
+    lkeys = mapped_keys(isa, n, lpos, k, nkeys, mapping)
     # the writes
     cnt = 0
     if remap:
