@@ -305,6 +305,15 @@ Phases (any failure exits non-zero before the last line is printed):
              and the library call (torch.sort(stable=True) of a
              (32, 901120) int64 key; scatter_ for the emit), each
              kernel's device time.  (It runs after phase 21.)
+ 23. bench:  bench_torch.py --size 50400000 --seed 0 (56 blocks) in a
+             child process started without the switches this smoke
+             sets: the host C library's profile-guided build, then its
+             six legs (host compress and decompress, level parity,
+             chain and token mode, decompress with both device stages);
+             its last line logged, bit_identical_1_5_9 true, every
+             *_MBps positive, the card's name not empty, and in its
+             telemetry the device's blocks in chain and token mode and
+             in level parity at levels 5 and 9 each above 0.
 
 Every kernel record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations its function needs on this run's
@@ -2121,6 +2130,44 @@ def stream_tree(seed: int, dev) -> int:
 
 
 CRC_LIMIT = 8 << 20  # the CRC kernel's widest block (JAX's 18 levels)
+
+
+BENCH_SIZE = 56 * 900_000  # the device's first claim lands well before
+                           # the host ends the stream (at 16 blocks it
+                           # did not: the device took none)
+
+
+def bench_phase() -> None:
+    """Phase 23: the port's benchmark at 56 blocks in a child process,
+    in the shipped default (the switches this smoke sets removed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("LBZ2_")}
+    t0 = time.time()
+    r = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py"),
+                        "--size", str(BENCH_SIZE), "--seed", "0"],
+                       capture_output=True, text=True, env=env, cwd=root,
+                       timeout=900)
+    sys.stderr.write(r.stderr)
+    assert r.returncode == 0, f"bench_torch.py exited {r.returncode}"
+    line = r.stdout.strip().splitlines()[-1]
+    log(f"bench_torch.py --size {BENCH_SIZE}: {time.time() - t0:.1f} s, "
+        f"{line}")
+    head = json.loads(line)
+    assert head["bit_identical_1_5_9"] is True, "bench: level parity failed"
+    rates = {k: v for k, v in head.items() if k.endswith("_MBps")}
+    assert len(rates) == 6 and all(
+        isinstance(v, (int, float)) and v > 0 for v in rates.values()), \
+        f"bench: a rate is not positive: {rates}"
+    assert head["device"]["name"], "bench: no card name"
+    with open(os.path.join(root, "bench_torch_telemetry.json")) as fh:
+        tele = json.load(fh)
+    took = {"chain": tele["chain"]["stats"]["device_blocks"],
+            "token": tele["token"]["stats"]["device_blocks"],
+            **{f"parity_{lvl}": tele["level_parity"][lvl]["device_blocks"]
+               for lvl in ("5", "9")}}
+    log(f"bench: device blocks {took}")
+    assert all(n > 0 for n in took.values()), \
+        f"bench: the device took no block in a leg: {took}"
 
 
 def crc_phase(text: bytes, dev) -> dict:
@@ -4032,6 +4079,7 @@ def main(argv=None) -> int:
     sharded = sharded_phase(dev)
     engine_cards_phase(data, ref, dev)
     multihost_phase(data, dev)
+    bench_phase()
 
     record["launches"] = launches
     lengths_record["launches"] = mstep_launches

@@ -5,6 +5,13 @@ other C sources beside it) into ``build/lbzip2_tpu_torch/lbz2_native.so``
 beside the package, rebuilt when a source is newer; no pip/pybind11
 needed.  A compile that fails raises.  With no ``gcc`` at all
 ``native_available()`` is False and callers take their numpy paths.
+
+Profile-guided build: while ``build/lbzip2_tpu_torch/pgo/`` holds a
+profile newer than every source (``tools/gen_pgo.py`` writes it; the
+benchmark, bench_torch.py, runs it), the library is built with
+``-fprofile-use``; a profile older than a source is skipped with one
+message.  Under ``LBZ2_PGO_GEN=<dir>`` the library
+is built instrumented into ``<dir>``, writing its profile there.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -21,28 +29,81 @@ import numpy as np
 _DIR = pathlib.Path(__file__).resolve().parent
 _SRC = _DIR / "lbz2_native.c"
 _SO = _DIR.parent.parent / "build" / "lbzip2_tpu_torch" / "lbz2_native.so"
+_PGO = _SO.parent / "pgo"
 
 _lib = None
 _lock = threading.Lock()
+last_build: dict = {}  # command, profile state and stderr of the last gcc
 
 
-def _build() -> pathlib.Path | None:
+def pgo_inputs(pgo: pathlib.Path = _PGO) -> tuple[float, list[float]]:
+    """The newest source's mtime and the mtimes of the profile's files."""
     newest_src = max(p.stat().st_mtime for p in _DIR.glob("*.c"))
-    if _SO.exists() and _SO.stat().st_mtime >= newest_src:
-        return _SO
+    profiles = [p.stat().st_mtime for p in pgo.glob("*.gcda")] \
+        if pgo.is_dir() else []
+    return newest_src, profiles
+
+
+def pgo_flags(newest_src: float, profiles: list[float], pgo: pathlib.Path,
+              gen: str | None = None) -> tuple[list[str], str]:
+    """gcc's profile flags and the profile's state: ``"gen"`` (``gen``,
+    the value of LBZ2_PGO_GEN, is set: instrumented, with exact counts
+    from the threads that call the library at once), ``"use"`` (every
+    profile file at least as new as the newest source), ``"stale"`` (a
+    profile file older than a source: no profile) or ``"none"``.  A
+    profile that does not match the sources fails the build."""
+    if gen:
+        return [f"-fprofile-generate={gen}", "-fprofile-update=atomic"], "gen"
+    if not profiles:
+        return [], "none"
+    if min(profiles) < newest_src:
+        return [], "stale"
+    return [f"-fprofile-use={pgo}", "-Werror=missing-profile"], "use"
+
+
+def _build(so: pathlib.Path = _SO,
+           pgo: pathlib.Path = _PGO) -> pathlib.Path | None:
+    """The library at ``so`` (instrumented, in LBZ2_PGO_GEN's directory,
+    when that is set), built if a source or a fresh profile in ``pgo``
+    is newer than it."""
+    gen = os.environ.get("LBZ2_PGO_GEN")
+    if gen:
+        pgo = pathlib.Path(gen).resolve()
+        so = pgo / so.name
+    newest_src, profiles = pgo_inputs(pgo)
+    flags, state = pgo_flags(newest_src, profiles, pgo,
+                             str(pgo) if gen else None)
+    if state == "stale":
+        print(f"lbzip2_tpu_torch: stale PGO profile in {pgo} ignored "
+              "(bench_torch.py makes a fresh one)", file=sys.stderr)
+    stamp = max([newest_src] + (profiles if state == "use" else []))
+    if so.exists() and so.stat().st_mtime >= stamp:
+        return so
     gcc = shutil.which("gcc")
     if gcc is None:
         return None
-    _SO.parent.mkdir(parents=True, exist_ok=True)
-    tmp = _SO.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [gcc, "-O3", "-march=native", "-shared", "-fPIC", str(_SRC),
-         "-o", str(tmp)], capture_output=True, text=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gcc, "-O3", "-march=native", "-shared", "-fPIC", *flags]
+    cwd = None
+    if flags:
+        # gcc names a profile file after its working directory and the
+        # aux name, which comes from -o unless -dumpdir fixes it: the
+        # instrumented and the profiled build run in the profile's
+        # directory with one -dumpdir, so that the second finds what the
+        # first wrote whatever their temporary outputs are called
+        pgo.mkdir(parents=True, exist_ok=True)
+        cmd += ["-dumpdir", "lbz2-"]
+        cwd = pgo
+    cmd += [str(_SRC), "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=cwd)
+    last_build.clear()
+    last_build.update(cmd=cmd, state=state, stderr=proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"gcc failed for {_SRC.name}:\n{proc.stderr}")
     # atomic: a concurrent process never loads half a library
-    os.replace(tmp, _SO)
-    return _SO
+    os.replace(tmp, so)
+    return so
 
 
 def get_lib():
@@ -52,7 +113,7 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        so = _build()
+        so = _build(_SO, _PGO)
         if so is None:
             return None
         lib = ctypes.CDLL(str(so))

@@ -1,8 +1,8 @@
 """The port is a package of its own: no source file of it (and not
-chip_smoke.py) imports the JAX package, jax or jaxlib, and a process
-that imports every port module and runs its entry points ends with none
-of the three loaded.  Its native library is built from its own sources
-into build/lbzip2_tpu_torch/.
+chip_smoke.py or bench_torch.py) imports the JAX package, jax or
+jaxlib, and a process that imports every port module and runs its entry
+points ends with none of the three loaded.  Its native library is built
+from its own sources into build/lbzip2_tpu_torch/.
 """
 
 import ast
@@ -16,7 +16,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FOREIGN = {"lbzip2_tpu", "jax", "jaxlib"}
 SOURCES = sorted((ROOT / "lbzip2_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
