@@ -8,7 +8,8 @@ The second form runs no phase: it builds the kernels of this checkout
 (or of the checkout at DIR, whose wrappers have the same signatures:
 run both in turns inside one call to compare two trees), holds them
 against their plain versions on the timed inputs of phases 3, 4, 8, 9,
-12, 13, 14, 15, 19, 20, 21 and 22 (a checkout without the CRC and the bit
+12, 13, 14, 15 (the CRC also at 8 MiB, the bit packer also on 4,194,304
+random fields), 19, 20, 21 and 22 (a checkout without the CRC and the bit
 packer times the six it has; one without the BWT's suffix-sort kernels
 times the plain suffix sorts its main path ran; one without the emits,
 the MTF byte entry or the flat compaction skips them, one without the
@@ -153,18 +154,33 @@ Phases (any failure exits non-zero before the last line is printed):
              phase 3, on that phase's BWT batch.)  With --measure also
              the device time of each op of the batch through bwt2_bytes
              and chain_payloads.
- 14. crc:    the CRC kernel (ops/crc.py::crc32_device) against its plain
-             version, tolerance 0, at n = 0, 1, 31, 32, 33 and 9999 in
-             N = 16384, n = 900000 in N = 901632, a full 901120-byte text
-             block and the 8 MiB limit; the stored CRC of each against the
-             host's; CUDA-event and device times on the text block.  (It
-             and phase 15 run after phase 12, on phase 3's batch.)
- 15. bitpack: the bit packer (ops/bitpack.py::pack_bits_device) against
+ 14. crc:    the CRC kernel (ops/crc.py::crc32_device, csrc/crc32.cu: one
+             launch, segments folded to n, a last-CTA XOR) against its
+             plain version, tolerance 0, at n = 0, 1, 31, 32, 33 and 9999
+             in N = 16384, n = 900000 in N = 901632, a full 901120-byte
+             text block, the 8 MiB limit, the CPU tests' cases at N =
+             1 MiB (n = 0, 1, 15, 16, 17, one byte before, at and after a
+             segment boundary, N, garbage past n; the block at byte
+             offset 3 of a larger buffer) and blocks at odd offsets of an
+             8 MiB buffer with n about its segment boundaries; the stored
+             CRC of each against the host's; two calls on two streams
+             left unwaited; one call under torch.cuda.set_sync_debug_mode
+             ("error"); the device kernels of three calls by
+             torch.profiler (crc_segments alone); CUDA-event and device
+             times on the text block and at 8 MiB.  (It and phase 15 run
+             after phase 12, on phase 3's batch.)
+ 15. bitpack: the bit packer (ops/bitpack.py::pack_bits_device, csrc/
+             bitpack.cu: the zero fill, then one look-back scan) against
              its plain version, tolerance 0, on random fields of 0 to 32
              bits, mostly zero-length fields, full-width fields, one
-             field, and the Huffman fields of one text block's
-             _pack_groups, whose words it must reproduce; CUDA-event and
-             device times on those fields.
+             field, the Huffman fields of one text block's _pack_groups,
+             whose words it must reproduce, the CPU tests' tile cases at
+             8192 fields, fields at odd offsets of larger buffers and
+             4,194,304 random fields; two calls on two streams left
+             unwaited; one call under set_sync_debug_mode("error"); the
+             device kernels of three calls (the fill and pack_scan);
+             CUDA-event and device times on the Huffman fields and the
+             4,194,304 random ones.
  16. sharded: entry.dryrun_multichip over every visible card at 901120
              (sharded bwt2, token emit, entropy chain, IBWT decode; every
              payload against native.encode_payload, the stream through
@@ -1804,6 +1820,21 @@ def kernels_only(seed: int, profiled: bool, dev) -> int:
             lambda v, ln: bitpack.pack_bits_device(v, ln, v.numel()),
             lambda v, ln: bitpack.pack_bits_plain(v, ln, v.numel()),
             (values, nbits))
+        # the aims' other sizes: the 8 MiB limit, 4,194,304 fields
+        rng = np.random.default_rng(20)
+        big = torch.from_numpy(rng.integers(0, 256, CRC_LIMIT,
+                                            dtype=np.uint8)).to(dev)
+        calls["crc32_8MiB"] = (lambda b: crc.crc32_device(b, CRC_LIMIT),
+                               lambda b: crc.crc32_plain(b, CRC_LIMIT),
+                               (big,))
+        M = 4_194_304
+        calls["bitpack_random_4194304"] = (
+            lambda v, ln: bitpack.pack_bits_device(v, ln, M),
+            lambda v, ln: bitpack.pack_bits_plain(v, ln, M),
+            (torch.from_numpy(rng.integers(0, 1 << 32, M, dtype=np.uint64)
+                              .astype(np.int64)).to(dev),
+             torch.from_numpy(rng.integers(0, 33, M).astype(np.int32))
+             .to(dev)))
     # the RLE2 with its histogram and the group packing of the text batch;
     # a checkout from before their kernels times the plain versions its
     # main path ran
@@ -2176,36 +2207,84 @@ def crc_phase(text: bytes, dev) -> dict:
     from lbzip2_tpu_torch.ops import crc
 
     rng = np.random.default_rng(14)
-    cases = {f"n{n}_N16384": (rng.integers(0, 256, 16384, dtype=np.uint8),
-                              n) for n in (0, 1, 31, 32, 33, 9999)}
-    cases["n900000_N901632"] = (
-        rng.integers(0, 256, 901632, dtype=np.uint8), 900000)
-    textblk = np.frombuffer(text[:WIDTH], np.uint8).copy()
+    cases = {f"n{n}_N16384": (torch.from_numpy(
+        rng.integers(0, 256, 16384, dtype=np.uint8)).to(dev), n)
+        for n in (0, 1, 31, 32, 33, 9999)}
+    cases["n900000_N901632"] = (torch.from_numpy(
+        rng.integers(0, 256, 901632, dtype=np.uint8)).to(dev), 900000)
+    textblk = torch.from_numpy(np.frombuffer(text[:WIDTH],
+                                             np.uint8).copy()).to(dev)
     cases["text_901120"] = (textblk, WIDTH)
-    cases["n8MiB"] = (rng.integers(0, 256, CRC_LIMIT, dtype=np.uint8),
-                      CRC_LIMIT)
+    big = torch.from_numpy(rng.integers(0, 256, CRC_LIMIT + 64,
+                                        dtype=np.uint8)).to(dev)
+    cases["n8MiB"] = (big[:CRC_LIMIT], CRC_LIMIT)
+    # tests/test_torch_crc_segments.py's cases (N = 1 MiB, n at the small
+    # edges and one byte before, at and after a segment boundary, garbage
+    # past n, the block at byte offset 3 of a larger buffer), then blocks
+    # at odd offsets of the 8 MiB buffer, n about its segment boundaries
+    mib = 1 << 20
+    s1, s8 = crc._seg_bytes(mib), crc._seg_bytes(CRC_LIMIT)
+    for n, a in ((0, 0), (1, 0), (15, 0), (16, 0), (17, 0), (5 * s1 - 1, 0),
+                 (5 * s1, 0), (5 * s1 + 1, 0), (mib, 0), (700001, 0),
+                 (17, 3), (5 * s1 + 1, 3), (mib, 3)):
+        cases[f"n{n}_N1MiB_at{a}"] = (big[a:a + mib], n)
+    for a, n in ((1, CRC_LIMIT), (7, 100 * s8 - 1), (15, 100 * s8 + 1),
+                 (5, 3 * s8), (9, CRC_LIMIT - 1000)):
+        cases[f"n{n}_N8MiB_at{a}"] = (big[a:a + CRC_LIMIT], n)
     max_err = 0
-    for name, (blk, n) in cases.items():
-        b = torch.from_numpy(blk).to(dev)
-        err = max_err_of(crc.crc32_device(b, n), crc.crc32_plain(b, n))
-        stored = crc.crc32_block_device(blk, n, device=dev)
-        assert stored == crc32.crc_of(blk[:n]), f"crc {name}: stored CRC"
+    for name, (b, n) in cases.items():
+        reg = crc.crc32_device(b, n)
+        err = max_err_of(reg, crc.crc32_plain(b, n))
+        stored = crc32.crc_finalize(
+            int(reg) ^ crc32._OPS.advance_scalar(crc32.INIT, n))
+        assert stored == crc32.crc_of(b[:n].cpu().numpy()), \
+            f"crc {name}: stored CRC"
         max_err = max(max_err, err)
         log(f"crc kernel vs plain [{name}]: max_abs_err {err}, stored "
-            f"{stored:#010x}")
+            f"{stored:#010x}, address mod 16 {b.data_ptr() % 16}")
         assert err == 0, f"CRC kernel disagrees with plain on {name}"
-    b = torch.from_numpy(textblk).to(dev)
-    ms_k = cuda_ms(lambda: crc.crc32_device(b, WIDTH), 200)
-    ms_p = cuda_ms(lambda: crc.crc32_plain(b, WIDTH), 3)
-    us = device_us(lambda: crc.crc32_device(b, WIDTH))
+    assert crc.crc32_block_device(textblk.cpu().numpy(), WIDTH,
+                                  device=dev) == crc32.crc_of(text[:WIDTH]), \
+        "crc32_block_device"
+    # two calls on two streams, neither waited for: the second call's
+    # slots and ticket are the first's, held (ops/lookback.py)
+    one, two = cases["n8MiB"], cases[f"n{5 * s1 + 1}_N1MiB_at3"]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        r1 = crc.crc32_device(*one)
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        r2 = crc.crc32_device(*two)
+    torch.cuda.synchronize()
+    assert max_err_of(r1, crc.crc32_plain(*one)) == 0 and \
+        max_err_of(r2, crc.crc32_plain(*two)) == 0, "CRC on two streams"
+    torch.cuda.set_sync_debug_mode("error")  # no host read
+    try:
+        crc.crc32_device(textblk, WIDTH)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ran = launched_kernels(lambda: crc.crc32_device(textblk, WIDTH),
+                           {"crc_segments": ("crc_segments",)})
+    log(f"crc32: device kernels of 3 calls {json.dumps(ran)}")
+    ms_k = cuda_ms(lambda: crc.crc32_device(textblk, WIDTH), 200)
+    ms_p = cuda_ms(lambda: crc.crc32_plain(textblk, WIDTH), 3)
+    us = device_us(lambda: crc.crc32_device(textblk, WIDTH))
+    b8 = cases["n8MiB"][0]
+    ms_k8 = cuda_ms(lambda: crc.crc32_device(b8, CRC_LIMIT), 100)
+    ms_p8 = cuda_ms(lambda: crc.crc32_plain(b8, CRC_LIMIT), 2)
+    us8 = device_us(lambda: crc.crc32_device(b8, CRC_LIMIT))
     log(f"crc32 (901120-byte text block): kernel {ms_k:.4f} ms, plain "
-        f"{ms_p:.3f} ms; device us {json.dumps(us)}")
+        f"{ms_p:.3f} ms; device us {json.dumps(us)}; 8 MiB: kernel "
+        f"{ms_k8:.4f} ms, plain {ms_p8:.3f} ms, device us "
+        f"{json.dumps(us8)}")
     # the block read once and the register written; one lookup a byte
     return {"name": "crc32", "route": "cuda",
             "source": "lbzip2_tpu_torch/csrc/crc32.cu",
             "replaces": "lbzip2_tpu/ops/crc.py:49", "launches": 0,
             "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p,
-            "device_us": us, **bound(WIDTH + 8, WIDTH)}
+            "device_us": us, "kernels_a_call": ran,
+            **bound(WIDTH + 8, WIDTH),
+            "ms_8MiB": ms_k8, "plain_ms_8MiB": ms_p8, "device_us_8MiB": us8,
+            "bound_ms_8MiB": bound(CRC_LIMIT + 8, CRC_LIMIT)["bound_ms"]}
 
 
 def pack_groups_fields(batch, dev):
@@ -2236,6 +2315,42 @@ def pack_groups_fields(batch, dev):
             words[0].long() & M32, int(total[0]))
 
 
+def bitpack_tile_cases(rng, dev) -> dict:
+    """tests/test_torch_bitpack_tiles.py's cases at 8192 fields: tile
+    edges 7 bits into a word and on a word edge, zero-length fields at
+    the tiles' ends, a tile of no bits, all 32-bit fields, nf < N, one
+    field, nf = 0 (random values, garbage past nf)."""
+    from lbzip2_tpu_torch.ops import bitpack
+
+    N, tile, out = 8192, bitpack._TILE, {}
+    for name in ("mid_word", "word_edge", "zero_at_tile_ends", "empty_tile",
+                 "all_32_bits", "nf_below_n", "one_field", "nf_zero"):
+        lens = rng.integers(0, 33, N).astype(np.int32)
+        vals = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.int64)
+        nf = N
+        if name in ("mid_word", "word_edge"):
+            lens[:] = 5
+            lens[0] = 7 if name == "mid_word" else 5
+        elif name == "zero_at_tile_ends":
+            for c in range(1, N // tile):
+                lens[c * tile - 5:c * tile + 5] = 0
+            lens[:3] = lens[-3:] = 0
+        elif name == "empty_tile":
+            lens[tile:2 * tile] = 0
+            lens[tile - 1] = lens[2 * tile] = 3
+        elif name == "all_32_bits":
+            lens[:] = 32
+        elif name == "nf_below_n":
+            nf = 3 * tile + 77
+        elif name == "one_field":
+            nf, lens[0] = 1, 13
+        elif name == "nf_zero":
+            nf = 0
+        out[f"{name}_8192"] = (torch.from_numpy(vals).to(dev),
+                               torch.from_numpy(lens).to(dev), nf)
+    return out
+
+
 def bitpack_phase(batch, dev) -> dict:
     """15. The bit packer against its plain version, and on one text
     block's Huffman fields against that block's ``_pack_groups``."""
@@ -2254,33 +2369,77 @@ def bitpack_phase(batch, dev) -> dict:
                  nf) for k, (v, ln, nf) in cases.items()}
     values, nbits, words_want, total_want = pack_groups_fields(batch, dev)
     cases["huffman_text_block"] = (values, nbits, values.numel())
+    cases.update(bitpack_tile_cases(rng, dev))
+    # fields at odd offsets of larger buffers (the scalar loads)
+    M = 4_194_304
+    v4 = torch.from_numpy(rng.integers(0, 1 << 32, M + 8, dtype=np.uint64)
+                          .astype(np.int64)).to(dev)
+    l4 = torch.from_numpy(rng.integers(0, 33, M + 8).astype(np.int32)
+                          ).to(dev)
+    cases["random_100001_at1"] = (v4[1:100002], l4[1:100002], 100001)
+    cases["random_100001_at3_nf_half"] = (v4[3:100004], l4[3:100004], 50000)
+    n = values.numel()
+    hv = torch.zeros(n + 5, dtype=torch.int64, device=dev)
+    hl = torch.zeros(n + 5, dtype=torch.int32, device=dev)
+    hv[5:], hl[5:] = values, nbits
+    cases["huffman_text_block_at5"] = (hv[5:], hl[5:], n)
+    cases["random_4194304"] = (v4[:M], l4[:M], M)
     max_err = 0
     for name, (v, ln, nf) in cases.items():
         got = bitpack.pack_bits_device(v, ln, nf)
         err = max_err_of(got, bitpack.pack_bits_plain(v, ln, nf))
         max_err = max(max_err, err)
-        log(f"bitpack kernel vs plain [{name}]: {v.numel()} fields, "
-            f"{int(got[1])} bits, max_abs_err {err}")
+        log(f"bitpack kernel vs plain [{name}]: {v.numel()} fields, nf "
+            f"{nf}, {int(got[1])} bits, max_abs_err {err}")
         assert err == 0, f"bitpack kernel disagrees with plain on {name}"
-    words, total = bitpack.pack_bits_device(values, nbits, values.numel())
+    words, total = bitpack.pack_bits_device(values, nbits, n)
     nw = -(-total_want // 32)
     assert int(total) == total_want and torch.equal(
         words[:nw], words_want[:nw]) and not words[nw:].any(), \
         "the packed Huffman fields differ from _pack_groups"
-    n = values.numel()
+    # two calls on two streams, neither waited for: the second call's
+    # descriptors and ticket are the first's, held (ops/lookback.py)
+    one, two = cases["random_4194304"], cases["huffman_text_block_at5"]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        g1 = bitpack.pack_bits_device(*one)
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        g2 = bitpack.pack_bits_device(*two)
+    torch.cuda.synchronize()
+    assert max_err_of(g1, bitpack.pack_bits_plain(*one)) == 0 and \
+        max_err_of(g2, bitpack.pack_bits_plain(*two)) == 0, \
+        "bit packer on two streams"
+    torch.cuda.set_sync_debug_mode("error")  # no host read
+    try:
+        bitpack.pack_bits_device(values, nbits, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ran = launched_kernels(
+        lambda: bitpack.pack_bits_device(values, nbits, n),
+        {"pack_scan": ("pack_scan",),
+         "zero fill": ("FillFunctor", "Memset", "memset")})
+    log(f"bitpack: device kernels of 3 calls {json.dumps(ran)}")
     ms_k = cuda_ms(lambda: bitpack.pack_bits_device(values, nbits, n), 50)
     ms_p = cuda_ms(lambda: bitpack.pack_bits_plain(values, nbits, n), 5)
     us = device_us(lambda: bitpack.pack_bits_device(values, nbits, n))
+    ms_k4 = cuda_ms(lambda: bitpack.pack_bits_device(v4[:M], l4[:M], M), 50)
+    ms_p4 = cuda_ms(lambda: bitpack.pack_bits_plain(v4[:M], l4[:M], M), 3)
+    us4 = device_us(lambda: bitpack.pack_bits_device(v4[:M], l4[:M], M))
     log(f"bitpack ({n} Huffman fields of a text block, {total_want} bits, "
         f"the same words as _pack_groups): kernel {ms_k:.4f} ms, plain "
-        f"{ms_p:.3f} ms; device us {json.dumps(us)}")
+        f"{ms_p:.3f} ms; device us {json.dumps(us)}; {M} random fields of "
+        f"0 to 32 bits: kernel {ms_k4:.4f} ms, plain {ms_p4:.3f} ms, "
+        f"device us {json.dumps(us4)}")
     # values int64 and lengths int32 in, int64 words and the total out;
     # a field takes at least one operation
     return {"name": "bitpack", "route": "cuda",
             "source": "lbzip2_tpu_torch/csrc/bitpack.cu",
             "replaces": "lbzip2_tpu/ops/bitpack.py:31", "launches": 0,
             "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p,
-            "device_us": us, **bound(n * (8 + 4 + 8) + 4, n)}
+            "device_us": us, "kernels_a_call": ran,
+            **bound(n * (8 + 4 + 8) + 4, n), "ms_4194304": ms_k4,
+            "plain_ms_4194304": ms_p4, "device_us_4194304": us4,
+            "bound_ms_4194304": bound(M * (8 + 4 + 8) + 4, M)["bound_ms"]}
 
 
 def bwt2_rows(blocks: list, width: int):

@@ -6,10 +6,19 @@ op, and its host wrapper ``pack_bits_host``): fields (the low nbits of
 each value, MSB first) packed into big-endian 32-bit words.  The JAX
 form merges the field starts with the output-bit grid by two sorts over
 33N lanes; here each field finds its start by a prefix sum and writes
-the one or two words it spans (``csrc/bitpack.cu``: a scan, then an
-atomicOr a piece into a zeroed buffer; fields never overlap).  A JAX u32
-is an int64 masked to 32 bits here (``interop.py``): values in, words
-out.
+itself.  The kernel is ``csrc/bitpack.cu``: behind the output's zero
+fill, one launch of a single-pass scan with decoupled look-back over
+tiles of ``_TILE`` = ``_THREADS`` x ``_PER`` fields by persistent CTAs
+(each thread ``_PER`` consecutive fields by vector loads, the next
+tile's in flight during the current one's look-back, each tile's start
+bit from the earlier tiles' published sums), the tile's words merged in
+shared memory, stored whole, and only the words a tile shares with its
+neighbours ORed into the output.  Its descriptors and ticket are held
+per thread and device (``ops/lookback.py::scratch``), so a call
+allocates only its outputs.  ``_THREADS`` and ``_PER`` are passed to
+the kernel, which checks them; the CPU tests' model of the kernel reads
+the same.  A JAX u32 is an int64 masked to 32 bits here
+(``interop.py``): values in, words out.
 
 ``pack_bits_device`` takes the plain version only for a CPU tensor.
 For a CUDA tensor it launches the kernel or raises.
@@ -25,8 +34,12 @@ import torch
 from lbzip2_tpu_torch import _build
 from lbzip2_tpu_torch.device import resolve, upload
 from lbzip2_tpu_torch.interop import M32
+from lbzip2_tpu_torch.ops import lookback
 
-_BLOCK = 1024  # fields a CTA of the kernel's scan
+# the kernel's: threads a CTA, fields a thread, fields a tile
+_THREADS = 256
+_PER = 8
+_TILE = _THREADS * _PER
 
 launches = 0  # CUDA kernel launches made by pack_bits_device
 
@@ -56,16 +69,21 @@ def pack_bits_plain(values: torch.Tensor, lens: torch.Tensor, nf: int):
 
 
 def _lib():
-    fn = _build.load("bitpack").lbz2t_pack_bits
+    lib = _build.load("bitpack")
+    fn = lib.lbz2t_pack_bits
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p] * 5
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.lbz2t_pack_bits_desc_words.argtypes = [ctypes.c_int]
+        lib.lbz2t_pack_bits_desc_words.restype = ctypes.c_longlong
+        lib.lbz2t_pack_bits_state_ints.restype = ctypes.c_longlong
+    return lib
 
 
 def pack_bits_cuda(values: torch.Tensor, lens: torch.Tensor, nf: int):
-    """Launch the CUDA kernels on the current stream (no synchronize)."""
+    """Launch the zero fill and the CUDA kernel on the current stream (no
+    synchronize)."""
     global launches
     dev = values.device
     if dev.type != "cuda" or lens.device != dev:
@@ -76,22 +94,26 @@ def pack_bits_cuda(values: torch.Tensor, lens: torch.Tensor, nf: int):
     if not (values.is_contiguous() and lens.is_contiguous()):
         raise ValueError("values and lens must be contiguous")
     N = values.shape[0]
+    nf = min(max(nf, 0), N)
     with torch.cuda.device(dev):
         words = torch.zeros(N, dtype=torch.int64, device=dev)
-        total = torch.zeros(1, dtype=torch.int32, device=dev)
         if N == 0:
-            return words, total[0]
-        incl = torch.empty(N, dtype=torch.int32, device=dev)
-        sums = torch.empty(-(-N // _BLOCK), dtype=torch.int32, device=dev)
-        err = _lib()(values.data_ptr(), lens.data_ptr(), N, nf,
-                     words.data_ptr(), total.data_ptr(), incl.data_ptr(),
-                     sums.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+            return words, torch.zeros((), dtype=torch.int32, device=dev)
+        lib = _lib()
+        total = torch.empty((), dtype=torch.int32, device=dev)
+        desc, state, epoch = lookback.scratch(
+            "bitpack", dev, lib.lbz2t_pack_bits_desc_words(N),
+            lib.lbz2t_pack_bits_state_ints(), torch.int64)
+        err = lib.lbz2t_pack_bits(
+            values.data_ptr(), lens.data_ptr(), N, nf, _THREADS, _PER,
+            words.data_ptr(), total.data_ptr(), desc.data_ptr(),
+            state.data_ptr(), epoch,
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"bitpack kernel launch failed: cudaError "
                                f"{err}")
     launches += 1
-    return words, total[0]
+    return words, total
 
 
 def pack_bits_device(values: torch.Tensor, lens: torch.Tensor, nf):

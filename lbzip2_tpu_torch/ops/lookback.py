@@ -1,6 +1,8 @@
 """Device state of the single-pass scans with decoupled look-back
 (``csrc/rle2.cu``, ``csrc/pack_groups.cu`` in both modes, the token scan
-of ``csrc/bwt2_emit.cu``), held per calling thread and device.
+of ``csrc/bwt2_emit.cu``, ``csrc/bitpack.cu``) and of the CRC's last-CTA
+fold (``csrc/crc32.cu``: its CTAs' slots and ticket), held per calling
+thread and device.
 
 Each kernel publishes a descriptor a tile whose status word carries the
 call's epoch, so a call never takes an earlier call's descriptor for its
