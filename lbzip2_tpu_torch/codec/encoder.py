@@ -63,6 +63,7 @@ from lbzip2_tpu_torch.device import (on, record_event, resolve_all,
 from lbzip2_tpu_torch.ops.bwt2 import bwt2_bytes, bwt2_tokens, last_passes
 from lbzip2_tpu_torch.ops.chain import chain_payloads
 from lbzip2_tpu_torch.ref import rle1
+from lbzip2_tpu_torch.utils import trace
 
 # Device row widths: one production bucket (covers
 # MAX_BLOCK_SIZE with ~0.1% padding) and one tiny bucket so CPU tests
@@ -291,7 +292,8 @@ class _TorchPool:
     ``_DEVICE_CHAIN`` says when the pool is made."""
 
     def __init__(self, buf, blocks, cluster_factor, host_workers,
-                 use_device, device: torch.device | list[torch.device]):
+                 use_device, device: torch.device | list[torch.device],
+                 tracer: trace.Tracer | None = None):
         self.buf = buf
         self.blocks = blocks
         self.cf = cluster_factor
@@ -322,8 +324,8 @@ class _TorchPool:
         self.fetch_cv = threading.Condition(self.q_lock)
         self.stats = {"device_blocks": 0, "host_blocks": 0,
                       "periodic_blocks": 0, "stale_rows": 0,
-                      "host_idle_s": 0.0, "device_batches": [],
-                      "batch_trace": [], "t0": time.time()}
+                      "device_batches": [], "batch_trace": [],
+                      "t0": time.time(), "trace": None}
         self.devices = list(device) if isinstance(device, (list, tuple)) \
             else [device]
         self.chain = _DEVICE_CHAIN
@@ -332,6 +334,8 @@ class _TorchPool:
         self.streams = _pool_streams(self.devices)
         self._engines: list[threading.Thread] = []   # device + host threads
         self._fetcher: threading.Thread | None = None  # the device's
+        self.trace = tracer
+        self._fetch_batch = -1  # the batch the fetch thread finishes
 
     # --- queue primitives -------------------------------------------------
     def take_head(self, k: int) -> list[int]:
@@ -481,12 +485,23 @@ class _TorchPool:
     def _device_pipeline(self):
         """Claim, prep, upload and dispatch batches, batch i to device
         i mod D; the fetch worker finishes them in order, each on its
-        batch's device."""
+        batch's device.
+
+        Traced, the thread's life, its waits (the gate, the in-flight
+        cap, a refused claim, the drain), each batch's prep and dispatch
+        are spans; in token mode on a card two timing events bracket
+        the BWT, which the fetch worker reads once the batch is done."""
+        tr = self.trace
+        life = tr and tr.open("engine.dispatch_life")
+        sp = tr and tr.open("engine.gate_wait")
         _GATE.wait_idle()  # don't queue behind a previous pool's tail
+        if sp:
+            tr.close(sp)
         self._fetcher = threading.Thread(target=self._fetch_worker,
                                          name="lbz2-fetch", daemon=True)
         self._fetcher.start()
         disp = 0  # batches dispatched
+        claims = 0  # claims granted: a batch's id
         try:
             while not (self.abandoned or self.complete):
                 if self.error is not None:
@@ -494,7 +509,10 @@ class _TorchPool:
                 cap = self.inflight_cap()
                 with self.fetch_cv:
                     if self.fetch_pending >= cap:
+                        sp = tr and tr.open("engine.cap_wait")
                         self.fetch_cv.wait(timeout=_WAKE_S)
+                        if sp:
+                            tr.close(sp)
                         continue
                 ids = self.take_head(_BATCH)
                 if not ids:
@@ -506,10 +524,18 @@ class _TorchPool:
                     with self.fetch_cv:
                         if self.fetch_pending == 0 or self.tail <= self.head:
                             break
+                        sp = tr and tr.open("engine.refused_wait")
                         self.fetch_cv.wait(timeout=_WAKE_S)
+                        if sp:
+                            tr.close(sp)
                     continue
+                batch_id = claims
+                claims += 1
                 claimed_t = round(time.time() - self.stats["t0"], 3)
+                sp = tr and tr.open("engine.prep", cpu=True, batch=batch_id)
                 built = self._build_batch(ids)
+                if sp:
+                    tr.close(sp, rows=0 if built is None else len(built[0]))
                 if built is None:
                     continue
                 ids, spans, batch, ns, ms, tele = built
@@ -518,6 +544,8 @@ class _TorchPool:
                 disp += 1
                 tele["dev"] = slot
                 dev = self.devices[slot]
+                sp = tr and tr.open("engine.dispatch", batch=batch_id)
+                bracket = None
                 t0 = time.time()
                 with self._on(slot):
                     args = (upload(batch, dev), upload(ns, dev),
@@ -525,7 +553,13 @@ class _TorchPool:
                     if self.chain:
                         outs = bwt2_bytes(*args)
                     else:
+                        if sp and dev.type == "cuda":
+                            bracket = (torch.cuda.Event(enable_timing=True),
+                                       torch.cuda.Event(enable_timing=True))
+                            bracket[0].record()
                         tokens, raw, counts, primary = bwt2_tokens(*args)
+                        if bracket:
+                            bracket[1].record()
                         # the copies overlap later batches' kernels; raw
                         # rows are fetched only past the token capacity
                         outs = (to_host(tokens), raw, to_host(counts),
@@ -533,21 +567,29 @@ class _TorchPool:
                     # the BWT's passes a row, read behind the batch's event
                     outs += (to_host(last_passes()), record_event(dev))
                 tele["dispatch_s"] = round(time.time() - t0, 3)
+                if sp:
+                    tr.close(sp, rows=len(ids))
                 gen = _GATE.inc()
                 with self.q_lock:
                     self.fetch_pending += 1
-                self.fetch_q.put((ids, spans, outs, tele, slot, gen))
+                self.fetch_q.put((ids, spans, outs, tele,
+                                  (batch_id, sp, bracket), slot, gen))
             # drain: the fetch worker finishes in the background; stop
             # early when the stream completes, the watchdog fires, or the
             # fetch worker failed (its error is the pool's result)
             with self.fetch_cv:
+                sp = tr and tr.open("engine.drain_wait")
                 while self.fetch_pending > 0 and self.error is None and \
                         not (self.abandoned or self.complete):
                     self.fetch_cv.wait(timeout=_WAKE_S)
+                if sp:
+                    tr.close(sp)
         finally:
             if self.abandoned or self.error is not None:
                 self._drain_fetch_q()
             self.fetch_q.put(None)
+            if life:
+                tr.close(life)
 
     def _drain_fetch_q(self):
         """Release the in-flight accounting of batches nobody will
@@ -570,32 +612,63 @@ class _TorchPool:
             self.fetch_cv.notify_all()
 
     def _fetch_worker(self):
+        tr = self.trace
+        life = tr and tr.open("engine.fetch_life")
+        try:
+            self._fetch_batches(tr)
+        finally:
+            if life:
+                tr.close(life)
+
+    def _fetch_batches(self, tr):
         while True:
             item = self.fetch_q.get()
             if item is None:
                 return
+            ids, spans, outs, tele, (batch_id, disp_sp, bracket), slot, \
+                gen = item
             try:
-                if all(self.is_stale(i) for i in item[0]):
+                if all(self.is_stale(i) for i in ids):
                     # the host delivered every row: skip the batch's
                     # entropy stage (this also ends the pool's run sooner)
-                    self.stats["stale_rows"] += len(item[0])
+                    self.stats["stale_rows"] += len(ids)
+                    if tr:
+                        tr.count("engine.skipped_batches")
+                        tr.count("engine.skipped_rows", len(ids))
                     continue
-                with self._on(item[-2]):  # the batch's device
-                    fetch = self._fetch_chain if self.chain \
-                        else self._fetch_tokens
-                    fetch(*item[:-2])
+                self._fetch_batch = batch_id
+                with self._on(slot):  # the batch's device
+                    if self.chain:
+                        self._fetch_chain(ids, spans, outs, tele)
+                    else:
+                        sp = tr and tr.open("engine.fetch_tokens",
+                                            batch=batch_id)
+                        self._fetch_tokens(ids, spans, outs, tele)
+                        if sp:
+                            tr.close(sp)
+                    if bracket:  # done: the fetch waited on a later event
+                        disp_sp["bwt_device_us"] = round(
+                            1e3 * bracket[0].elapsed_time(bracket[1]))
             except Exception as e:  # recorded; run() re-raises it
                 if not (self.abandoned or self.complete):
                     self.fail(e)
                 self._drain_fetch_q()
                 return
             finally:
-                _GATE.dec(item[-1])
+                _GATE.dec(gen)
                 self._fetched()
 
     @staticmethod
     def _wait_ready(ev):
         wait_event(ev)
+
+    def _ready(self, ev):
+        """Wait for a batch's event; traced, as a span."""
+        tr = self.trace
+        sp = tr and tr.open("engine.ready_wait", batch=self._fetch_batch)
+        self._wait_ready(ev)
+        if sp:
+            tr.close(sp)
 
     def _fetch_tokens(self, ids, spans, outs, tele):
         """Token-mode completion: wait for the batch and its copies,
@@ -603,7 +676,7 @@ class _TorchPool:
         over the token capacity downloads its raw bytes alone."""
         tokens, raw, run_counts, primary, passes, ev = outs
         t0 = time.time()
-        self._wait_ready(ev)
+        self._ready(ev)
         tele["bwt2_passes"] = int(passes.max())
         counts = run_counts.numpy()
         prim = primary.numpy()
@@ -633,7 +706,7 @@ class _TorchPool:
         rows that overflow the pack width re-encode on the host."""
         bwt_dev, primary, passes, ev = outs
         t0 = time.time()
-        self._wait_ready(ev)
+        self._ready(ev)
         tele["bwt2_passes"] = int(passes.max())
         ns = np.array([s.data.size for s in spans], np.int32)
         cmaps = np.stack([np.asarray(s.cmap, np.uint8) for s in spans])
@@ -641,9 +714,13 @@ class _TorchPool:
             [(native.crc32_block(self.buf[s.start:s.end]) ^ 0xFFFFFFFF)
              & 0xFFFFFFFF for s in spans], np.uint32)
         stage_times: dict = {}
+        tr = self.trace
+        sp = tr and tr.open("engine.chain", batch=self._fetch_batch)
         payloads = chain_payloads(bwt_dev, ns, cmaps,
                                   primary.cpu().numpy().astype(np.int32),
                                   crcs, self.cf, times=stage_times)
+        if sp:
+            tr.close(sp, rows=len(ids))
         tele["chain_stages"] = stage_times
         fresh = stale = 0
         for row, (i, span) in enumerate(zip(ids, spans)):
@@ -746,6 +823,7 @@ class _TorchPool:
         while there are claims to steal, so the gates above are
         re-evaluated) when nothing is ready but work may still
         appear."""
+        tr = self.trace
         while True:
             item = self.entropy_q.get(block=False)
             if item is not None:
@@ -763,13 +841,16 @@ class _TorchPool:
             wait = 1.0
             if _HOST_STEAL and _STEALBACK and self.claimed:
                 wait = min(wait, max(0.02, self.stealback_grace()))
-            t = time.time()
+            sp = tr and tr.open("host.wait")
             item = self.entropy_q.get(block=True, timeout=wait)
-            self.stats["host_idle_s"] += time.time() - t
+            if sp:
+                tr.close(sp)
             if item is not None:
                 return ("entropy", item)
 
     def host_loop(self):
+        tr = self.trace
+        life = tr and tr.open("host.life")
         try:
             if self.use_device:
                 _yield_to_device()
@@ -780,22 +861,37 @@ class _TorchPool:
                 kind, item = task
                 if kind == "entropy":
                     self._do_entropy(item)
-                else:  # steal / steal_back: whole-block host encode
-                    if self.put_result(item, _host_block(
-                            self.buf, self.blocks[item], self.cf)):
-                        self.stats["host_blocks"] += 1
+                    continue
+                # steal / steal_back: whole-block host encode
+                sp = tr and tr.open("host.block", block=item)
+                out = _host_block(self.buf, self.blocks[item], self.cf)
+                if sp:
+                    tr.close(sp)
+                    tr.count(f"host.{kind}s")
+                if self.put_result(item, out):
+                    self.stats["host_blocks"] += 1
         except BaseException as e:  # noqa: BLE001
             self.fail(e)
+        finally:
+            if life:
+                tr.close(life)
 
     def _do_entropy(self, item):
         i, span, bwt_row, bidx = item
         if self.is_stale(i):  # another engine already produced it
             return
-        if bwt_row is None:  # periodic block: full host encode
-            self.put_result(i, _host_block(self.buf, span, self.cf))
+        tr = self.trace
+        # a periodic block, or a row the device gave back: full host
+        # encode; else the entropy stage of the device's BWT
+        sp = tr and tr.open("host.block" if bwt_row is None
+                            else "host.entropy", block=i)
+        if bwt_row is None:
+            out = _host_block(self.buf, span, self.cf)
         else:
-            self.put_result(i, _entropy_payload(
-                self.buf, span, bwt_row, bidx, self.cf))
+            out = _entropy_payload(self.buf, span, bwt_row, bidx, self.cf)
+        if sp:
+            tr.close(sp)
+        self.put_result(i, out)
 
     # --- delivery loop ----------------------------------------------------
     def run(self):
@@ -971,6 +1067,19 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
     order.  The host C kernels (``lbzip2_tpu_torch.native``) are
     required: the device engine runs ``lyndon_prep``, and
     ``chain_finish`` or the token entropy coder."""
+    tr = trace.begin()
+    out = _hybrid_blocks(data, level, cluster_factor, sequential_split,
+                         entropy_workers, use_device, device, tr)
+    if tr:
+        last_stats["trace"] = tr.result()
+    return out
+
+
+def _hybrid_blocks(data, level, cluster_factor, sequential_split,
+                   entropy_workers, use_device, device,
+                   tr: trace.Tracer | None):
+    """``compress_blocks_hybrid``'s work; traced, the collection of the
+    blocks and the pool's run are spans of ``tr``."""
     global last_stats
     if not 1 <= level <= 9:
         raise ValueError(f"level must be 1..9, got {level}")
@@ -982,21 +1091,27 @@ def compress_blocks_hybrid(data: bytes | np.ndarray, level: int = 9,
         data, (bytes, bytearray)) else np.ascontiguousarray(
             data, dtype=np.uint8)
     mbs = level * 100000
+    sp = tr and tr.open("compress.collect")
     blocks = [rle1.BlockSpan(a, b, blk, cmap) for a, b, blk, cmap in
               native.rle1_collect(buf, mbs,
                                   None if sequential_split else mbs,
                                   reuse_arena=True)]
+    if sp:
+        tr.close(sp, blocks=len(blocks))
     if entropy_workers is None:
         entropy_workers = max(2, os.cpu_count() or 2)
     if use_device is None:
         use_device = _DEVICE
     pool = _TorchPool(buf, blocks, cluster_factor, entropy_workers,
-                      use_device, devs)
+                      use_device, devs, tr)
     last_stats = pool.stats
     payloads, crcs = [], []
+    sp = tr and tr.open("compress.run")
     for payload, crc_stored in pool.run():
         payloads.append(payload)
         crcs.append(crc_stored)
+    if sp:
+        tr.close(sp)
     return payloads, crcs
 
 
@@ -1009,10 +1124,15 @@ def compress(data: bytes | np.ndarray, level: int = 9,
     """Compress into a .bz2 stream on the hybrid pool with the device
     engine on the devices ``device`` names (every visible card for
     ``"cuda"``).  Bit-identical to the JAX package's compress
-    and to the host C pipeline."""
-    payloads, crcs = compress_blocks_hybrid(
+    and to the host C pipeline.  Traced (``utils/trace.py``), the call,
+    its blocks' collection, the pool's run and the stream's assembly
+    are spans in ``last_stats["trace"]``."""
+    tr = trace.begin()
+    call = tr and tr.open("compress.call")
+    payloads, crcs = _hybrid_blocks(
         data, level, cluster_factor, sequential_split, entropy_workers,
-        use_device, device)
+        use_device, device, tr)
+    sp = tr and tr.open("compress.assemble")
     parts = [bytes([0x42, 0x5A, 0x68, 0x30 + level])]
     combined = 0
     for payload, crc_stored in zip(payloads, crcs):
@@ -1020,4 +1140,9 @@ def compress(data: bytes | np.ndarray, level: int = 9,
         combined = crc32.combine_crc(combined, crc_stored)
     parts.append(bytes([0x17, 0x72, 0x45, 0x38, 0x50, 0x90]) +
                  combined.to_bytes(4, "big"))
-    return b"".join(parts)
+    out = b"".join(parts)
+    if tr:
+        tr.close(sp)
+        tr.close(call)
+        last_stats["trace"] = tr.result()
+    return out

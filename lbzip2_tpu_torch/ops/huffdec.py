@@ -207,14 +207,15 @@ def decode_block_device(arr: np.ndarray, nbits: int, payload_pos: int,
     pinned buffer, on a stream of the calling thread's own (made once),
     and the thread waits on that stream's event only, so concurrent
     workers do not serialise on a device-wide synchronize.  ``stage``,
-    if given, is called with (name, seconds) for the boundary walk
-    ("walk_s"), the device stage from upload to download ("huffman_s")
-    and IMTF + RLE2 with the reconcile ("imtf_rle2_s")."""
-    t0 = time.perf_counter()
+    if given (a tracer's ``add``), is called with (name, start, end) by
+    ``time.perf_counter_ns()`` for the boundary walk ("decode.walk"), the
+    device stage from upload to download ("decode.huffman") and IMTF +
+    RLE2 with the reconcile ("decode.imtf_rle2")."""
+    t0 = time.perf_counter_ns() if stage else 0
     err, end_pos, meta, inputs = group_inputs(arr, nbits, payload_pos)
-    t1 = time.perf_counter()
-    if stage is not None:
-        stage("walk_s", t1 - t0)
+    if stage:
+        t1 = time.perf_counter_ns()
+        stage("decode.walk", t0, t1)
     if err != 0:
         return err, payload_pos, None, 0, 0
     if device.type == "cuda":
@@ -232,7 +233,9 @@ def decode_block_device(arr: np.ndarray, nbits: int, payload_pos: int,
         syms, end = decode_groups(*(torch.from_numpy(np.require(
             a, requirements="CW")) for a in inputs))
     syms, end = syms.numpy(), end.numpy()
-    t2 = time.perf_counter()
+    if stage:
+        t2 = time.perf_counter_ns()
+        stage("decode.huffman", t1, t2)
     try:
         # reconcile: the cursor after group g must hit group g+1's start
         # (the last group ends at EOB mid-group; the host walk bounds it)
@@ -245,9 +248,8 @@ def decode_block_device(arr: np.ndarray, nbits: int, payload_pos: int,
         except ValueError:
             return Error.ERR_OVERFLOW.value, payload_pos, None, 0, 0
     finally:
-        if stage is not None:
-            stage("huffman_s", t2 - t1)
-            stage("imtf_rle2_s", time.perf_counter() - t2)
+        if stage:
+            stage("decode.imtf_rle2", t2, time.perf_counter_ns())
     if meta["idx"] >= bwt.size:
         return Error.ERR_BWTIDX.value, payload_pos, None, 0, 0
     return 0, end_pos, bwt, meta["idx"], meta["rand"]

@@ -26,21 +26,21 @@ takes the host C path.  With a switch on, ``device="cuda"`` without
 CUDA raises; an error raised by a kernel or its launch propagates out
 of the entry point and never becomes a stream-error verdict.
 
-``last_stats["stage_s"]`` holds the seconds of each stage summed over
-the blocks decoded (speculative candidates included, by all workers,
-so the sum exceeds the wall): with the device stages, the host boundary
-walk (``walk_s``), the Huffman stage from upload to download
-(``huffman_s``), IMTF + RLE2 (``imtf_rle2_s``), the wait for the
-batcher's inverse BWT (``ibwt_s``), RLE1 (``rle1_s``) and the CRC
-(``crc_s``); on the host C path, retrieve (walk, Huffman, IMTF + RLE2:
-``host_retrieve_s``) and inverse BWT + RLE1 + CRC (``host_emit_s``).
+Traced (``utils/trace.py``), ``last_stats["trace"]`` holds a span for
+each stage of each block decoded (speculative candidates included), on
+the worker thread that ran it: with the device stages, the host boundary
+walk (``decode.walk``), the Huffman stage from upload to download
+(``decode.huffman``), IMTF + RLE2 (``decode.imtf_rle2``), the wait for
+the batcher's inverse BWT (``decode.ibwt``), RLE1 (``decode.rle1``) and
+the CRC (``decode.crc``); on the host C path, retrieve (walk, Huffman,
+IMTF + RLE2: ``decode.host_retrieve``) and inverse BWT + RLE1 + CRC
+(``decode.host_emit``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -54,6 +54,7 @@ from lbzip2_tpu_torch.device import resolve, to_host, upload
 from lbzip2_tpu_torch.ops.huffdec import decode_block_device
 from lbzip2_tpu_torch.ops.ibwt import ibwt_rows
 from lbzip2_tpu_torch.ref.rle1 import rle1_decode
+from lbzip2_tpu_torch.utils import trace
 
 BLOCK_MAGIC = 0x314159265359
 EOS_MAGIC = 0x177245385090
@@ -63,33 +64,6 @@ DEVICE_IBWT = os.environ.get("LBZ2_DEVICE_DECODE", "0") == "1"
 DEVICE_HUFF = os.environ.get("LBZ2_DEVICE_HUFF", "0") == "1"
 
 last_stats: dict | None = None  # device use of the last decompress call
-
-STAGES = ("walk_s", "huffman_s", "imtf_rle2_s", "ibwt_s", "rle1_s", "crc_s",
-          "host_retrieve_s", "host_emit_s")
-
-
-class _StageTimes:
-    """Seconds per decode stage, summed over the blocks of one call by
-    every worker thread."""
-
-    def __init__(self):
-        self.seconds = dict.fromkeys(STAGES, 0.0)
-        self._lock = threading.Lock()
-
-    def add(self, name: str, seconds: float) -> None:
-        with self._lock:
-            self.seconds[name] += seconds
-
-    def timed(self, name: str, fn, *args):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args)
-        finally:
-            self.add(name, time.perf_counter() - t0)
-
-    def rounded(self) -> dict:
-        return {k: round(v, 4) for k, v in self.seconds.items()}
-
 
 def scan_magic_bits(data: np.ndarray, magic: int = BLOCK_MAGIC
                     ) -> np.ndarray:
@@ -268,23 +242,22 @@ def _decode_candidate(arr: np.ndarray, nbits: int, payload_pos: int,
                       pool: SlotPool | None = None,
                       batcher: _DeviceIbwtBatcher | None = None,
                       device: torch.device | None = None,
-                      stages: _StageTimes | None = None):
+                      tr: trace.Tracer | None = None):
     """Speculatively retrieve + IBWT the block whose payload starts at
     payload_pos (lbzip2_tpu/parallel/decode.py:111-129): the Huffman
     stage on ``device`` when DEVICE_HUFF is on, the host C retrieve
     otherwise; then ``_emit_result``, which takes the batcher's device
     IBWT for a non-randomised block and the host C path for the rest."""
-    stages = stages or _StageTimes()
     if DEVICE_HUFF:
         err, newpos, bwt, idx, rnd = decode_block_device(
-            arr, nbits, payload_pos, device, stages.add)
+            arr, nbits, payload_pos, device, tr and tr.add)
     else:
-        err, newpos, bwt, idx, rnd = stages.timed(
-            "host_retrieve_s", native.retrieve_block, arr, nbits,
+        err, newpos, bwt, idx, rnd = trace.timed(
+            tr, "decode.host_retrieve", native.retrieve_block, arr, nbits,
             payload_pos)
     if err != 0:
         return {"err": err}
-    return _emit_result(bwt, idx, rnd, newpos, pool, batcher, stages)
+    return _emit_result(bwt, idx, rnd, newpos, pool, batcher, tr)
 
 
 def block_payloads(data: bytes) -> list[int]:
@@ -304,25 +277,26 @@ def block_payloads(data: bytes) -> list[int]:
 def _emit_result(bwt, idx, rnd, newpos,
                  pool: SlotPool | None = None,
                  batcher: "_DeviceIbwtBatcher | None" = None,
-                 stages: _StageTimes | None = None):
+                 tr: trace.Tracer | None = None):
     """IBWT + RLE1-expand a retrieved block into result chunks
     (slot-pooled when a SlotPool bounds memory)."""
-    stages = stages or _StageTimes()
     if batcher is not None and not rnd:
         # device IBWT (batched sublist list ranking), host RLE1+CRC
         if not (0 <= idx < bwt.size):
             return {"err": Error.ERR_RUNLEN.value}
-        rle_domain = stages.timed("ibwt_s", batcher.run, bwt, int(idx))
-        plain, ok = stages.timed("rle1_s", rle1_decode, rle_domain)
+        rle_domain = trace.timed(tr, "decode.ibwt", batcher.run, bwt,
+                                 int(idx))
+        plain, ok = trace.timed(tr, "decode.rle1", rle1_decode,
+                                rle_domain)
         if not ok:
             return {"err": Error.ERR_RUNLEN.value}
-        crc = (stages.timed("crc_s", native.crc32_block, plain)
+        crc = (trace.timed(tr, "decode.crc", native.crc32_block, plain)
                ^ 0xFFFFFFFF) & 0xFFFFFFFF
         return {"err": 0, "end": newpos, "chunks": [plain.tobytes()],
                 "cursor": None, "crc": crc, "size": int(bwt.size),
                 "pooled": False}
-    return stages.timed("host_emit_s", _emit_host, bwt, idx, rnd, newpos,
-                        pool)
+    return trace.timed(tr, "decode.host_emit", _emit_host, bwt, idx, rnd,
+                       newpos, pool)
 
 
 def _emit_host(bwt, idx, rnd, newpos, pool: SlotPool | None):
@@ -424,18 +398,19 @@ def decompress_parallel(data: bytes, n_workers: int | None = None,
         n_workers = min(32, os.cpu_count() or 1)
     spool = SlotPool(out_slots or 16 * n_workers)
     batcher = _DeviceIbwtBatcher(device=dev) if use_ibwt else None
-    stages = _StageTimes()
+    tr = trace.begin()
     stats = {"blocks": 0, "device_huff": DEVICE_HUFF,
-             "ibwt_rows": 0, "ibwt_flushes": 0}
+             "ibwt_rows": 0, "ibwt_flushes": 0, "trace": None}
     last_stats = stats
 
     def decode(p):
         return _decode_candidate(arr, nbits, p + 80, spool, batcher, dev,
-                                 stages)
+                                 tr)
 
     candidates = [int(p) for p in scan_magic_bits(arr)]
     out_parts: list[bytes] = []
-    with ThreadPoolExecutor(max_workers=n_workers) as pool:
+    with ThreadPoolExecutor(max_workers=n_workers,
+                            thread_name_prefix="lbz2-decode") as pool:
         futs: dict[int, object] = {}
         next_cand = 0
 
@@ -505,7 +480,8 @@ def decompress_parallel(data: bytes, n_workers: int | None = None,
     if batcher is not None:
         stats["ibwt_rows"] = batcher.rows
         stats["ibwt_flushes"] = batcher.flushes
-    stats["stage_s"] = stages.rounded()
+    if tr:
+        stats["trace"] = tr.result()
     return b"".join(out_parts)
 
 
@@ -615,9 +591,9 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
     spool = SlotPool(out_slots or 16 * n_workers)
     dev = resolve(device) if (DEVICE_HUFF or DEVICE_IBWT) else None
     batcher = _DeviceIbwtBatcher(device=dev) if DEVICE_IBWT else None
-    stages = _StageTimes()
+    tr = trace.begin()
     stats = {"blocks": 0, "device_huff": DEVICE_HUFF,
-             "ibwt_rows": 0, "ibwt_flushes": 0}
+             "ibwt_rows": 0, "ibwt_flushes": 0, "trace": None}
     last_stats = stats
     if _pool_out is not None:
         _pool_out.append(spool)  # test hook: expose peak accounting
@@ -671,7 +647,7 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
                 not DEVICE_HUFF:
             r = native.ResumableRetriever()
             try:
-                t0 = time.perf_counter()
+                sp = tr and tr.open("decode.host_retrieve")
                 while True:
                     arr, base = sb.snapshot()
                     err, end, size, idx, rnd = r.step(arr, base * 8,
@@ -679,13 +655,14 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
                     if err == Error.MORE.value and sb.extend():
                         continue
                     break
-                stages.add("host_retrieve_s", time.perf_counter() - t0)
+                if sp:
+                    tr.close(sp)
                 if err == Error.MORE.value:  # exhausted at true EOF
                     return {"err": Error.ERR_EOF.value}
                 if err != 0:
                     return {"err": err}
                 return {**_emit_result(r.bwt[:size], idx, rnd, 0,
-                                       spool, batcher, stages),
+                                       spool, batcher, tr),
                         "end": end}
             finally:
                 r.close()
@@ -696,7 +673,7 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
             arr, base = sb.snapshot()
             res = _decode_candidate(arr, arr.size * 8,
                                     p + 80 - base * 8, spool, batcher,
-                                    dev, stages)
+                                    dev, tr)
             if res["err"] == Error.ERR_EOF.value and not speculative \
                     and sb.extend():
                 continue
@@ -704,7 +681,8 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
                 res["end"] += base * 8
             return res
 
-    with ThreadPoolExecutor(max_workers=n_workers) as pool:
+    with ThreadPoolExecutor(max_workers=n_workers,
+                            thread_name_prefix="lbz2-decode") as pool:
         pending: dict[int, object] = {}
         found: list[int] = []  # candidates ahead of the parser, ascending
 
@@ -791,6 +769,7 @@ def decompress_stream(read_chunk, write, n_workers: int | None = None,
     if batcher is not None:
         stats["ibwt_rows"] = batcher.rows
         stats["ibwt_flushes"] = batcher.flushes
-    stats["stage_s"] = stages.rounded()
+    if tr:
+        stats["trace"] = tr.result()
     total_in = sb.base + len(sb.buf)
     return total_in, total_out

@@ -24,7 +24,6 @@ import numpy as np
 from lbzip2_tpu_torch import native
 from lbzip2_tpu_torch.core import crc32
 from lbzip2_tpu_torch.core.constants import CLUSTER_FACTOR
-from lbzip2_tpu_torch.utils.trace import trace
 
 
 def _encode_window(buf: np.ndarray, level: int,
@@ -86,7 +85,6 @@ class CompressScheduler:
             if item is None:
                 return
             seq, buf = item
-            trace("worker: encode window %d (%d bytes)", seq, buf.size)
             try:
                 res = _encode_window(buf, self.level, self.cluster_factor)
             except BaseException as e:  # propagate to muxer
@@ -135,7 +133,6 @@ class CompressScheduler:
                     break
                 self.total_in += len(chunk)
                 self.work_q.put((seq, np.frombuffer(chunk, np.uint8)))
-                trace("source: queued window %d", seq)
                 seq += 1
                 inflight += 1
             # drain in order (event-driven: workers notify on completion)
@@ -155,8 +152,6 @@ class CompressScheduler:
             self.total_out += len(payload)
             for c in crcs:
                 combined = crc32.combine_crc(combined, c)
-            trace("muxer: wrote window %d (%d bytes)", next_write,
-                  len(payload))
             next_write += 1
             inflight -= 1
             self.in_slots.release()

@@ -1,15 +1,17 @@
 """The decoder's device stages ship what is live, and its stages are
-timed (lbzip2_tpu_torch/parallel/decode.py, ops/huffdec.py).
+traced (lbzip2_tpu_torch/parallel/decode.py, ops/huffdec.py).
 
 Each IBWT flush ships the rows it holds, as wide as its longest row,
 where the JAX batcher pads every flush to (8, 901120); the Huffman
-stage packs its six inputs into one upload; ``last_stats["stage_s"]``
-sums each stage's seconds over the blocks.  The output stays equal to
-the data and to the JAX package's device-stage decode.  All on the
-CPU, where the device stages run their plain versions.
+stage packs its six inputs into one upload; traced,
+``last_stats["trace"]`` holds a span of each stage of each block.  The
+output stays equal to the data and to the JAX package's device-stage
+decode.  All on the CPU, where the device stages run their plain
+versions.
 """
 
 import bz2
+import threading
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from lbzip2_tpu.parallel import decode as jdec
 from lbzip2_tpu.parallel.encode import compress_parallel
 from lbzip2_tpu_torch.ops import huffdec
 from lbzip2_tpu_torch.parallel import decode
+from lbzip2_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="needs C toolchain")
@@ -102,9 +105,13 @@ ON = {"off": (False, False), "huff": (True, False), "ibwt": (False, True),
 @pytest.mark.parametrize("name", list(ON))
 @pytest.mark.parametrize("entry", ["parallel", "stream"])
 def test_last_stats_carry_stage_times(monkeypatch, name, entry):
+    """Traced, each stage that ran is a span on a decode worker (or, for
+    a parser-confirmed block of the stream, the caller's thread), and
+    no other stage is."""
     huff, ibwt_on = ON[name]
     monkeypatch.setattr(decode, "DEVICE_HUFF", huff)
     monkeypatch.setattr(decode, "DEVICE_IBWT", ibwt_on)
+    monkeypatch.setenv(trace.ENV, "1")
     blob = _blob("lbzip2")
     if entry == "parallel":
         assert decode.decompress_parallel(blob, device="cpu") == DATA
@@ -114,13 +121,16 @@ def test_last_stats_carry_stage_times(monkeypatch, name, entry):
         decode.decompress_stream(lambda n: next(chunks), parts.append,
                                  device="cpu")
         assert b"".join(parts) == DATA
-    st = decode.last_stats["stage_s"]
-    assert set(st) == set(decode.STAGES)
-    ran = {"walk_s": huff, "huffman_s": huff, "imtf_rle2_s": huff,
-           "host_retrieve_s": not huff, "ibwt_s": ibwt_on,
-           "rle1_s": ibwt_on, "crc_s": ibwt_on, "host_emit_s": not ibwt_on}
-    for stage, on in ran.items():
-        assert (st[stage] > 0) == on, (stage, st)
+    tr = decode.last_stats["trace"]
+    ran = {"walk": huff, "huffman": huff, "imtf_rle2": huff,
+           "host_retrieve": not huff, "ibwt": ibwt_on, "rle1": ibwt_on,
+           "crc": ibwt_on, "host_emit": not ibwt_on}
+    assert {sp["name"] for sp in tr["spans"]} == \
+        {f"decode.{stage}" for stage, on in ran.items() if on}
+    for sp in tr["spans"]:
+        assert sp["call"] == tr["call"] and 0 <= sp["t1"] - sp["t0"], sp
+        assert sp["thread"].startswith("lbz2-decode") or \
+            sp["thread"] == threading.current_thread().name, sp
 
 
 def test_huffman_inputs_travel_as_one_buffer():
