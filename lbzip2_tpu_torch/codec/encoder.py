@@ -1091,15 +1091,19 @@ def _hybrid_blocks(data, level, cluster_factor, sequential_split,
         data, (bytes, bytearray)) else np.ascontiguousarray(
             data, dtype=np.uint8)
     mbs = level * 100000
-    sp = tr and tr.open("compress.collect")
-    blocks = [rle1.BlockSpan(a, b, blk, cmap) for a, b, blk, cmap in
-              native.rle1_collect(buf, mbs,
-                                  None if sequential_split else mbs,
-                                  reuse_arena=True)]
-    if sp:
-        tr.close(sp, blocks=len(blocks))
+    granul = None if sequential_split else mbs
     if entropy_workers is None:
         entropy_workers = max(2, os.cpu_count() or 2)
+    # before the pool starts, as many threads as it has workers collect
+    # the granule windows
+    sp = tr and tr.open("compress.collect")
+    blocks = [rle1.BlockSpan(a, b, blk, cmap) for a, b, blk, cmap in
+              native.rle1_collect(buf, mbs, granul, reuse_arena=True,
+                                  threads=entropy_workers)]
+    if sp:
+        chunks = native.collect_chunks(buf.size, granul, entropy_workers)
+        tr.close(sp, blocks=len(blocks), chunks=chunks,
+                 threads=min(chunks, entropy_workers))
     if use_device is None:
         use_device = _DEVICE
     pool = _TorchPool(buf, blocks, cluster_factor, entropy_workers,

@@ -282,54 +282,109 @@ class _CollectArena(threading.local):
 _collect_arena = _CollectArena()
 
 
+def collect_chunks(n: int, granul: int | None, threads: int) -> int:
+    """How many runs of whole granule windows ``rle1_collect`` walks at
+    once on ``threads`` threads: 1 (one walk on the calling thread)
+    unless a granule is given, ``threads`` is above 1 and the input
+    spans at least two windows a thread; else up to four a thread, so
+    that windows of unequal cost balance over the threads."""
+    nwin = -(-n // granul) if granul else 1
+    if threads < 2 or nwin < 2 * threads:
+        return 1
+    return min(nwin, 4 * threads)
+
+
+def _collect_bounds(n: int, mbs: int, granul: int | None):
+    """Upper bounds on the RLE1 output bytes and the block count of a
+    collect of ``n`` input bytes."""
+    # every granule window yields at least one block, so a granule
+    # smaller than the block capacity dominates the block count
+    nwin = (n + granul - 1) // granul if granul else 1
+    max_blocks = max(4, 2 * (n // mbs + 2) + nwin + 8)
+    return (n * 5) // 4 + 16 * max_blocks + 64, max_blocks
+
+
 def rle1_collect(data: np.ndarray, mbs: int, granul: int | None,
-                 reuse_arena: bool = False):
+                 reuse_arena: bool = False, threads: int = 1):
     """Returns list of (start, end, block_bytes, cmap_bool).
 
     reuse_arena=True returns block_bytes as VIEWS into a per-thread
     arena valid until this thread's next reuse_arena collect — the
     hybrid pool's fast path (skips one full-stream copy and the fresh
-    page-fault tax); default False returns owning copies."""
+    page-fault tax); default False returns owning copies.
+
+    No state crosses a granule window, so with ``threads`` above 1 the
+    input is cut at window boundaries into ``collect_chunks`` runs of
+    windows, each collected into its own region of the buffers on one
+    of ``threads`` threads (the caller's among them, the others joined
+    before the return): the same blocks, in the same order, as one
+    walk."""
     lib = get_lib()
     data = np.ascontiguousarray(data, dtype=np.uint8)
     n = data.size
-    # every granule window yields at least one block, so a granule
-    # smaller than the block capacity dominates the block count
-    nwin = (n + granul - 1) // granul if granul else 1
-    max_blocks = max(4, 2 * (n // mbs + 2) + nwin + 8)
-    out_cap = (n * 5) // 4 + 16 * max_blocks + 64
+    chunks = collect_chunks(n, granul, threads)
+    nwin = -(-n // granul) if granul else 1
+    cuts = [0] + [c * nwin // chunks * granul
+                  for c in range(1, chunks)] + [n]
+    caps, blks = [0], [0]  # each chunk's region of the output buffers
+    for lo, hi in zip(cuts, cuts[1:]):
+        cap, mb = _collect_bounds(hi - lo, mbs, granul)
+        caps.append(caps[-1] + cap)
+        blks.append(blks[-1] + mb)
     if reuse_arena:
-        _collect_arena.ensure(out_cap, max_blocks)
+        _collect_arena.ensure(caps[-1], blks[-1])
         a = _collect_arena
         out_buf, starts, ends = a.out_buf, a.starts, a.ends
         out_lens, cmaps = a.out_lens, a.cmaps
-        out_cap = out_buf.size
-        max_blocks = starts.size
     else:
-        out_buf = np.empty(out_cap, np.uint8)
-        starts = np.empty(max_blocks, np.int64)
-        ends = np.empty(max_blocks, np.int64)
-        out_lens = np.empty(max_blocks, np.int64)
-        cmaps = np.empty(max_blocks * 256, np.uint8)
+        out_buf = np.empty(caps[-1], np.uint8)
+        starts = np.empty(blks[-1], np.int64)
+        ends = np.empty(blks[-1], np.int64)
+        out_lens = np.empty(blks[-1], np.int64)
+        cmaps = np.empty(blks[-1] * 256, np.uint8)
+    caps[-1], blks[-1] = out_buf.size, starts.size  # the last runs to the end
     g = granul if granul is not None else 0
-    cnt = lib.lbz2_rle1_collect(
-        data.ctypes.data_as(ctypes.c_void_p), n, mbs, g,
-        out_buf.ctypes.data_as(ctypes.c_void_p), out_cap,
-        starts.ctypes.data_as(ctypes.c_void_p),
-        ends.ctypes.data_as(ctypes.c_void_p),
-        out_lens.ctypes.data_as(ctypes.c_void_p),
-        cmaps.ctypes.data_as(ctypes.c_void_p), max_blocks)
-    assert cnt >= 0, "rle1_collect buffer overflow"
+    counts = [0] * chunks
+
+    def ptr(arr):
+        return arr.ctypes.data_as(ctypes.c_void_p)
+
+    def walk(c):
+        b0 = blks[c]
+        counts[c] = lib.lbz2_rle1_collect(
+            ptr(data[cuts[c]:]), cuts[c + 1] - cuts[c], mbs, g,
+            ptr(out_buf[caps[c]:]), caps[c + 1] - caps[c],
+            ptr(starts[b0:]), ptr(ends[b0:]), ptr(out_lens[b0:]),
+            ptr(cmaps[b0 * 256:]), blks[c + 1] - b0)
+
+    todo = iter(range(chunks))  # shared: each chunk is taken once
+
+    def work():
+        for c in todo:
+            walk(c)
+
+    helpers = [threading.Thread(target=work, name=f"lbz2-collect{k}",
+                                daemon=True)
+               for k in range(1, min(threads, chunks))]
+    for t in helpers:
+        t.start()
+    try:
+        work()
+    finally:
+        for t in helpers:
+            t.join()
+    assert min(counts) >= 0, "rle1_collect buffer overflow"
     res = []
-    pos = 0
-    for i in range(cnt):
-        ln = int(out_lens[i])
-        blk = out_buf[pos:pos + ln]
-        if not reuse_arena:
-            blk = blk.copy()
-        res.append((int(starts[i]), int(ends[i]), blk,
-                    cmaps[i * 256:(i + 1) * 256].astype(bool)))
-        pos += ln
+    for c in range(chunks):
+        pos = caps[c]
+        for i in range(blks[c], blks[c] + counts[c]):
+            ln = int(out_lens[i])
+            blk = out_buf[pos:pos + ln]
+            if not reuse_arena:
+                blk = blk.copy()
+            res.append((int(starts[i]) + cuts[c], int(ends[i]) + cuts[c],
+                        blk, cmaps[i * 256:(i + 1) * 256].astype(bool)))
+            pos += ln
     return res
 
 

@@ -198,6 +198,31 @@ def test_profiler_turns_tracing_on_and_shares_its_timeline(monkeypatch):
         (a, b, probe.start, probe.end)
 
 
+@needs_native
+def test_collect_runs_on_as_many_threads_as_the_pool_has_workers(
+        monkeypatch):
+    """A twelve-window compress with four workers collects its windows in
+    runs on four threads (the span's ``chunks`` and ``threads``), with
+    one worker in one walk, and both give the same stream; no ``lbz2-``
+    thread outlives either call."""
+    monkeypatch.setenv(trace.ENV, "1")
+    rng = np.random.default_rng(12)
+    data = (rng.integers(0, 4, 12 * 100_000 - 999) + 97).astype(
+        np.uint8).tobytes()
+    outs, spans = [], []
+    for workers in (4, 1):
+        outs.append(encoder.compress(data, 1, entropy_workers=workers,
+                                     device="cpu"))
+        spans.append(next(sp for sp in encoder.last_stats["trace"]["spans"]
+                          if sp["name"] == "compress.collect"))
+        assert not [t.name for t in threading.enumerate()
+                    if t.name.startswith("lbz2-")]
+    assert outs[0] == outs[1] and bz2.decompress(outs[0]) == data
+    assert spans[0]["chunks"] > 1 and spans[0]["threads"] == 4
+    assert spans[1]["chunks"] == 1 and spans[1]["threads"] == 1
+    assert spans[0]["blocks"] == spans[1]["blocks"] >= 12
+
+
 def _span(name, t0, t1, **kw):
     return {"name": name, "thread": "t", "call": 1, "t0": t0, "t1": t1,
             **kw}
