@@ -17,6 +17,14 @@ on every machine:
 The text class is the frozen JAX package's source files, read as bytes
 and never imported.  Nothing outside the checkout is read.  The traffic
 file (``traffic/<name>.json``) gives the sizes and shares.
+
+Any other name under ``shares`` is a class of its own,
+``classes/<name>.py`` beside ``configs/``, ``traffic/`` and
+``metrics/``, found by name (``spec.data_class``): its ``make(traffic,
+rng, text, nbytes)`` returns the class's share of the file.  With
+``"page_bytes": null`` the classes follow one another in the order of
+``shares``, unshuffled, so that data whose order matters (the versions
+of an archive) keeps it.
 """
 
 from __future__ import annotations
@@ -29,12 +37,15 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from gpubench.spec import ROOT
+from gpubench import spec
 
 # The text class: the JAX package's Python and C sources, each pattern's
 # matches in sorted order.  That package is frozen, so the class is the
 # same in every checkout.
 TEXT_GLOBS = ("lbzip2_tpu/**/*.py", "lbzip2_tpu/native/*.c")
+
+# The classes built here; any other name is a module under classes/.
+BUILT_IN = ("text", "xml", "random")
 
 @dataclasses.dataclass(frozen=True)
 class File:
@@ -46,7 +57,7 @@ class File:
     sha256: str
 
 
-def text_class(root: pathlib.Path = ROOT) -> bytes:
+def text_class(root: pathlib.Path = spec.ROOT) -> bytes:
     """Every file of TEXT_GLOBS under ``root``, concatenated."""
     out = []
     for pat in TEXT_GLOBS:
@@ -95,44 +106,59 @@ def seed_sequence(seed: int, index: int) -> np.random.SeedSequence:
 
 
 def make_file(traffic: dict, seed: int, index: int, text: bytes,
-              nbytes: int | None = None) -> File:
+              nbytes: int | None = None,
+              root: pathlib.Path = spec.ROOT) -> File:
     """File ``index`` of ``seed``: ``traffic["file_bytes"]`` bytes (or
     ``nbytes``) of the classes at ``traffic["shares"]``, each class's
     source repeated to its share plus ``pad_bytes``, shuffled in pages of
-    ``page_bytes``."""
+    ``page_bytes`` (in the order of ``shares`` where it is null).
+
+    One generator draws, in this order: the XML records and the random
+    bytes, where ``sources`` gives their sizes; each class module's
+    share, in the order of ``shares``; the pages' permutation."""
     size = int(nbytes if nbytes is not None else traffic["file_bytes"])
     src = traffic["sources"]
+    pad = int(src["pad_bytes"])
     rng = np.random.default_rng(seed_sequence(seed, index))
-    words = words_of(text)
-    sources = {
-        "text": text,
-        "xml": xml_records(words, int(src["xml_bytes"]), rng),
-        "random": rng.integers(0, 256, int(src["random_bytes"]),
-                               dtype=np.uint8).tobytes(),
-    }
-    parts = []
-    for name, share in traffic["shares"].items():
-        want = int(size * float(share)) + int(src["pad_bytes"])
-        parts.append(np.resize(np.frombuffer(sources[name], np.uint8), want))
-    blob = np.concatenate(parts)
-    page = int(traffic["page_bytes"])
-    npages = blob.size // page
-    if npages * page < size:
+    sources = {"text": text}
+    if "xml_bytes" in src:
+        sources["xml"] = xml_records(words_of(text), int(src["xml_bytes"]),
+                                     rng)
+    if "random_bytes" in src:
+        sources["random"] = rng.integers(0, 256, int(src["random_bytes"]),
+                                         dtype=np.uint8).tobytes()
+    wants = {name: int(size * float(share)) + pad
+             for name, share in traffic["shares"].items()}
+    for name, want in wants.items():
+        if name in BUILT_IN:
+            continue
+        made = spec.data_class(name, root).make(traffic, rng, text, want)
+        if len(made) != want:
+            raise ValueError(f"corpus: class {name!r} made {len(made)} "
+                             f"bytes, not {want}")
+        sources[name] = made
+    blob = np.concatenate([np.resize(np.frombuffer(sources[name], np.uint8),
+                                     want) for name, want in wants.items()])
+    page = traffic["page_bytes"]
+    if page is not None:
+        npages = blob.size // int(page)
+        pages = blob[:npages * int(page)].reshape(npages, int(page))
+        blob = pages[rng.permutation(npages)].reshape(-1)
+    if blob.size < size:
         raise ValueError("corpus: the shares and pads leave the file short")
-    pages = blob[:npages * page].reshape(npages, page)
-    data = pages[rng.permutation(npages)].reshape(-1)[:size].tobytes()
+    data = blob[:size].tobytes()
     return File(index, data, hashlib.sha256(data).hexdigest())
 
 
 def make_files(traffic: dict, seed: int, nbytes: int | None = None,
-               root: pathlib.Path = ROOT) -> list[File]:
+               root: pathlib.Path = spec.ROOT) -> list[File]:
     """The cell's ``distinct_files`` files of ``seed``, made in threads
     (numpy and hashlib release the interpreter lock)."""
     text = text_class(root)
     n = int(traffic["distinct_files"])
     with ThreadPoolExecutor(max_workers=n) as ex:
         return list(ex.map(lambda k: make_file(traffic, seed, k, text,
-                                               nbytes), range(n)))
+                                               nbytes, root), range(n)))
 
 
 def rle1_bytes(data: bytes, chunk: int = 8 << 20) -> int:

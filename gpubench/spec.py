@@ -1,6 +1,7 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
-the checkout, ``configs/<config>.json``, ``traffic/<traffic>.json`` and
-``metrics/<metric>.py`` under this folder.
+the checkout, ``configs/<config>.json``, ``traffic/<traffic>.json``,
+``metrics/<metric>.py`` and ``classes/<name>.py`` (a kind of data a
+traffic mix names under ``shares``) under this folder.
 
 Only the standard library is imported here, so the tests and a run that
 fails early load it cheaply.
@@ -9,6 +10,7 @@ fails early load it cheaply.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import pathlib
@@ -67,14 +69,28 @@ def cell(name: str, root: pathlib.Path = ROOT) -> Cell:
                 per_layer=_for_cell(bench["per_layer"], name))
 
 
-def metric_reader(name: str, root: pathlib.Path = ROOT) -> ModuleType:
-    """The reader module ``gpubench/metrics/<name>.py``, loaded by path
-    (a metric's name may hold dots)."""
-    path = root / "gpubench" / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"gpubench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    if mod_spec is None or mod_spec.loader is None:
-        raise FileNotFoundError(path)
+def _load_by_path(kind: str, name: str, root: pathlib.Path) -> ModuleType:
+    """The module ``gpubench/<kind>/<name>.py`` under ``root``, loaded by
+    path (a name may hold dots); FileNotFoundError naming the path where
+    there is none."""
+    path = root / "gpubench" / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} module {name!r}: {path}")
+    mod_name = f"gpubench_{kind}_{name.replace('.', '_').replace('-', '_')}"
+    mod_spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str, root: pathlib.Path = ROOT) -> ModuleType:
+    """The reader module ``gpubench/metrics/<name>.py``."""
+    return _load_by_path("metrics", name, root)
+
+
+@functools.cache
+def data_class(name: str, root: pathlib.Path = ROOT) -> ModuleType:
+    """The data class ``gpubench/classes/<name>.py``, loaded once for each
+    ``root``: its ``make(traffic, rng, text, nbytes)`` returns exactly
+    ``nbytes`` bytes drawn from the file's generator ``rng``."""
+    return _load_by_path("classes", name, root)
